@@ -5,10 +5,13 @@
 
 Phases (each prints a line; any failure exits non-zero):
   1. the card's name and power limit; build the CUDA kernel from csrc/;
-  2. the scoring kernel against its plain PyTorch version on the card, on
-     the same subtask streams at four shapes (SAVAGE iteration 1 of one
-     envelope patch, kb-wide contigs, more than 2^16 rows, a 9 kb wide
-     matrix): integer columns equal, sum_log within rtol 1e-4 / atol 1e-3;
+  2. the scoring kernel (score_tasks_cuda) against its plain PyTorch
+     version (score_tasks_plain) on the card, on the same tasks at five
+     shapes (SAVAGE iteration 1 of one envelope patch, kb-wide contigs,
+     more than 2^16 rows, a 9 kb wide matrix, an EC iteration of a
+     polyte-split region) and thresholds 0 and far_threshold(): integer
+     columns equal, sum_log within rtol 1e-4 / atol 1e-3; each shape's
+     kernel, plain and bound times;
   3. stage a on a 160-read store (150 bp reads of a 2 kb genome, k=16
      candidates) with the torch backend against the f64 numpy oracle
      backend: byte-identical contigs;
@@ -34,9 +37,10 @@ Phases (each prints a line; any failure exits non-zero):
      card, no task on a host backend, no region failed.
 
 The inputs of phases 6-8 are the repo's own simulator's (utils/simulate.py)
-draws, rebuilt here with numpy in the same order. The second-to-last line
-is a JSON summary of the kernels; the last line is {"ok": true, "device":
-{...}}. Without a CUDA card it exits 1.
+draws, rebuilt here with numpy in the same order. Before the summary the
+script checks that no module of the JAX package and no jax was loaded.
+The second-to-last line is a JSON summary of the kernels; the last line is
+{"ok": true, "device": {...}}. Without a CUDA card it exits 1.
 """
 
 from __future__ import annotations
@@ -53,6 +57,9 @@ import numpy as np
 
 SEED = 0
 RTOL, ATOL = 1e-4, 1e-3
+# the H100's published peaks (SXM, 700 W): HBM bytes/s and FP32 FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
 
 
 def log(msg: str) -> None:
@@ -112,11 +119,37 @@ def far_threshold() -> float:
     return float((ps[i] + ps[i + 1]) / 2)
 
 
+def score_bound(lens, row_a, row_b, pos, L):
+    """The least time the card could take for one scoring call on these
+    tasks, in ms, and what bounds it. Bytes, at the HBM rate: the words of
+    the matrix that some task reads, each once (per row the union of the
+    a spans [pos, pos + L) and the b spans [0, L)), the length of each row
+    a task names, 12 B of columns and 20 B of results a task. Operations,
+    at the FP32 rate: one f32 add for each lane the tasks cover."""
+    rows = np.concatenate([row_a, row_b]).astype(np.int64)
+    start = np.concatenate([pos, np.zeros_like(pos)]).astype(np.int64)
+    end = start + np.concatenate([L, L])
+    keep = end > start
+    rows, start, end = rows[keep], start[keep], end[keep]
+    w = int(lens.max()) + 1  # every span ends within its row
+    order = np.argsort(rows * w + start, kind="stable")
+    rows, start, end = rows[order], start[order], end[order]
+    # the furthest end that an earlier span of the same row reached
+    reach = np.maximum.accumulate(rows * w + end)
+    prev = np.concatenate([[-1], reach[:-1]])
+    prev_end = np.where(prev // w == rows, prev % w, 0)
+    words = int(np.maximum(end - np.maximum(start, prev_end), 0).sum())
+    named = np.unique(np.concatenate([row_a, row_b])).size
+    moved = 2 * words + 4 * named + len(row_a) * (12 + 20)
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = int(L.sum()) / FP32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
 def phase_kernel(torch, rng):
     """Phase 2: kernel vs plain version on the card."""
-    from haploconduct_torch.ops.kernels import score_segments_cuda
-    from haploconduct_torch.ops.score import (pack_for_device, segment_scores_torch,
-                                              segment_tasks)
+    from haploconduct_torch.ops.kernels import score_tasks_cuda
+    from haploconduct_torch.ops.score import pack_for_device, score_tasks_plain
 
     cases = [
         # iteration 1 of an envelope patch: 2 x 44k oriented reads of
@@ -135,14 +168,15 @@ def phase_kernel(torch, rng):
     for name, codes, quals, lens, row_a, row_b, pos in cases:
         L = np.minimum(lens[row_a] - pos, lens[row_b])
         L = np.where(pos >= lens[row_a], 0, L)
-        cols_np = segment_tasks(row_a, row_b, pos, L)[:4]
         comb = pack_for_device(codes, quals, "cuda")
-        cols = [torch.from_numpy(c).cuda() for c in cols_np]
-        n_sub = len(cols_np[0])
+        cols = [torch.from_numpy(c.astype(np.int32)).cuda()
+                for c in (lens, row_a, row_b, pos)]
+        n_tasks = len(row_a)
+        bound_ms, bound_by = score_bound(lens, row_a, row_b, pos, L)
         max_err = 0.0
         for th in (0.0, thresh):
-            kern = score_segments_cuda(comb, *cols, th)
-            plain = segment_scores_torch(comb, *cols, th)
+            kern = score_tasks_cuda(comb, *cols, th)
+            plain = score_tasks_plain(comb, *cols, th)
             torch.cuda.synchronize()
             for j, col in enumerate(("counted", "mismatches", "rejected"), 1):
                 if not torch.equal(kern[j], plain[j]):
@@ -152,13 +186,15 @@ def phase_kernel(torch, rng):
             max_err = max(max_err, float((kern[0] - plain[0]).abs().max()))
             if th > 0 and name == "envelope_it1" and int(kern[3].sum()) == 0:
                 raise AssertionError("threshold test rejected no lane")
-        ms = cuda_ms(lambda: score_segments_cuda(comb, *cols, 0.0), 10)
-        plain_ms = cuda_ms(lambda: segment_scores_torch(comb, *cols, 0.0), 3)
+        ms = cuda_ms(lambda: score_tasks_cuda(comb, *cols, 0.0), 10)
+        plain_ms = cuda_ms(lambda: score_tasks_plain(comb, *cols, 0.0), 3)
         log(f"[kernel] {name}: R={codes.shape[0]} W={codes.shape[1]} "
-            f"subtasks={n_sub} max_abs_err={max_err:.3g} kernel_ms={ms:.3f} "
-            f"plain_ms={plain_ms:.3f} (thresholds 0 and {thresh:.4f})")
-        report.append(dict(name=name, subtasks=n_sub, max_abs_err=max_err,
-                           ms=ms, plain_ms=plain_ms))
+            f"tasks={n_tasks} lanes={int(L.sum())} max_abs_err={max_err:.3g} "
+            f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f} "
+            f"({bound_by}; thresholds 0 and {thresh:.4f})")
+        report.append(dict(name=name, tasks=n_tasks, max_abs_err=max_err,
+                           ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by))
         del comb, cols
     torch.cuda.empty_cache()
     return report
@@ -287,7 +323,7 @@ def store_seqs(store):
 
 
 def reset_counts(kernels, backend_counts, join_calls, join_seconds):
-    kernels.score_segments_cuda.launches = 0
+    kernels.score_tasks_cuda.launches = 0
     for key in backend_counts:
         backend_counts[key] = 0
     join_calls.clear()
@@ -406,7 +442,7 @@ def phase_polyte_split(torch, workdir):
         run = dict(wall=wall, verify_s=verify_s, regions=res.regions,
                    failed=res.failed_regions, contigs=store_seqs(final),
                    n=len(final), bp=int(sum(lens)), longest=lens[0] if lens else 0,
-                   launches=kernels.score_segments_cuda.launches,
+                   launches=kernels.score_tasks_cuda.launches,
                    counts=dict(BACKEND_COUNTS), join_calls=dict(JOIN_CALLS),
                    join_s=dict(JOIN_SECONDS), peak=torch.cuda.max_memory_allocated())
         runs[name] = run
@@ -504,12 +540,12 @@ def main() -> int:
             torch.cuda.reset_peak_memory_stats()
             for key in BACKEND_COUNTS:
                 BACKEND_COUNTS[key] = 0
-            kernels.score_segments_cuda.launches = 0
+            kernels.score_tasks_cuda.launches = 0
         t0 = time.perf_counter()
         res = run_savage(store, cfg)
         wall = time.perf_counter() - t0
         if backend == "torch":
-            launches = kernels.score_segments_cuda.launches
+            launches = kernels.score_tasks_cuda.launches
             counts = dict(BACKEND_COUNTS)
             peak = torch.cuda.max_memory_allocated()
         t = res.timings
@@ -544,17 +580,27 @@ def main() -> int:
         log(f"[phases 5-7] {time.perf_counter() - t0:.1f}s")
         split = phase_polyte_split(torch, workdir)
 
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("haploconduct_tpu", "jax", "jaxlib"))
+    if loaded:
+        raise AssertionError(f"the port loaded the JAX package or jax: {loaded}")
+    log("[standalone] no module of haploconduct_tpu and no jax in sys.modules")
+
     env = report[0]
     print(json.dumps({"kernels": [{
-        "name": "score_segments",
+        "name": "score_tasks",
         "route": "cuda",
-        "source": "haploconduct_torch/csrc/score_segments.cu",
+        "source": "haploconduct_torch/csrc/score_tasks.cu",
         "replaces": "haploconduct_tpu/ops/pallas_score.py:75",
         "launches": launches + split["launches"],
         "launches_by_path": {"savage": launches, "polyte_split": split["launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in report),
         "ms": env["ms"],
         "plain_ms": env["plain_ms"],
+        "bound_ms": env["bound_ms"],
+        "bound_by": env["bound_by"],
+        # no single PyTorch call computes this function
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,28 +1,56 @@
-"""One assembly iteration — twin of haploconduct_tpu/assemble/iteration.py:
-run_iteration, calling the twin's verify_overlaps and PhaseTimer. Every
-phase runs in the reference's order, through the reference's graph,
-clique, superread and FNO code, including its prefilter shortcut.
+"""One assembly iteration — the in-memory equivalent of a full
+bin/ViralQuasispecies run (src/ViralQuasispecies.cpp:40-492).
+
+Instead of the reference's file round-trip (fastq + overlaps in, fastq +
+overlaps + subreads out, per process invocation), an iteration takes and
+returns in-memory structures; the driver stays resident, device buffers are
+only rebuilt when the read set changes.
+
+Phases (same order as the reference main):
+  verify overlaps -> insert edges -> orientation labelling -> remove
+  inclusions -> transitive reduction -> tips -> branch reduction/removal ->
+  cycle removal -> cliques/merge -> superreads -> FNO -> next overlaps.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import List, Optional
 
 import numpy as np
 
-from haploconduct_tpu.assemble.fno import FNO1, find_next_overlaps3
-from haploconduct_tpu.assemble.iteration import (  # noqa: F401
-    IterationResult, overlaps_from_lines, trivial_originals)
-from haploconduct_tpu.assemble.superreads import SuperreadBuilder
-from haploconduct_tpu.core.reads import ReadStore
-from haploconduct_tpu.graph import algos
-from haploconduct_tpu.graph.cliques import enumerate_cliques
-from haploconduct_tpu.graph.overlap_graph import OverlapGraph
-from haploconduct_tpu.io.subreads import SubreadDict
-from haploconduct_tpu.utils.config import Settings
-
+from ..core.reads import ReadStore
+from ..graph import algos
+from ..graph.cliques import enumerate_cliques
+from ..graph.overlap_graph import OverlapGraph
+from ..io.overlaps import empty_overlaps
+from ..io.subreads import SubreadDict, trivial_subreads
 from ..ops.verify import length_prefilter, verify_overlaps
+from ..utils.config import Settings
 from ..utils.log import PhaseTimer
+from .fno import FNO1, find_next_overlaps3
+from .superreads import SuperreadBuilder
+
+
+@dataclass
+class IterationResult:
+    store: Optional[ReadStore]  # next iteration's reads (None if terminated)
+    subreads: Optional[SubreadDict]
+    overlap_lines: List[str]  # next iteration's overlaps (13-col lines)
+    terminated: bool  # no edges -> pipeline stops
+    stats: dict = field(default_factory=dict)
+
+
+def trivial_originals(store: ReadStore) -> SubreadDict:
+    """First-iteration originals dict (OverlapGraph::buildOriginalsDict
+    trivial branch, src/OverlapGraph.cpp:768-793)."""
+    lens1 = []
+    lens2 = []
+    for i in range(len(store)):
+        u1, u2 = store.units_of(i)
+        lens1.append(store.unit_len(u1))
+        lens2.append(store.unit_len(u2) if store.is_paired[i] else 0)
+    return trivial_subreads(store.ids, store.is_paired, lens1, lens2)
 
 
 def run_iteration(
@@ -95,7 +123,7 @@ def run_iteration(
             algos.remove_tips(graph)
 
     if s.branch_reduction:
-        from haploconduct_tpu.assemble.branch_reduction import read_based_branch_reduction
+        from .branch_reduction import read_based_branch_reduction
 
         with timer("branch_reduction"):
             read_based_branch_reduction(graph, originals_dict, original_store, threshold_table)
@@ -121,7 +149,7 @@ def run_iteration(
     if s.cliques:
         with timer("cliques"):
             if s.reference_order:
-                from haploconduct_tpu.graph.cliques import enumerate_cliques_ref
+                from ..graph.cliques import enumerate_cliques_ref
 
                 u, v = graph.graph_txt_pairs()
                 cliques = enumerate_cliques_ref(graph.n, u, v)
@@ -157,3 +185,12 @@ def run_iteration(
     if logger is not None:
         logger.iteration(s, stats, graph)
     return IterationResult(next_store, next_subreads, lines, False, stats)
+
+
+def overlaps_from_lines(lines: List[str]) -> np.ndarray:
+    """Parse in-memory overlap lines (13-col) into the structured array."""
+    from ..io.overlaps import parse_overlap_lines
+
+    if not lines:
+        return empty_overlaps(0)
+    return parse_overlap_lines(lines)

@@ -1,25 +1,96 @@
-"""Per-stage convergence loop — twin of haploconduct_tpu/assemble/stages.py:
-run_stage, driving the twin's run_iteration. StageParams, StageResult and
-the settings and snapshot helpers are the reference's; the loop is the
-reference's, line for line. A trace of the stage is a torch.profiler
-Chrome trace written into profile_dir.
+"""Per-stage convergence driver — in-memory rebuild of
+scripts/pipeline_per_stage.py.
+
+Stage a: one error-correction clique iteration (FNO3, double-transitive
+reduction) followed by alternating merge iterations (edge merging, FNO1)
+and clique iterations until the read count is constant for two consecutive
+iterations; stages b/c skip error correction and start with a merge
+iteration. Loop conditions and flag sets mirror pipeline_per_stage.py
+run_error_correction/run_merging_it/run_clique_it/run_first_it_merge
+(pipeline_per_stage.py:138-198, 214-478).
 """
 
 from __future__ import annotations
 
 import os
 import time
+from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
 
-from haploconduct_tpu.assemble.stages import (  # noqa: F401
-    StageParams, StageResult, _base_settings, _dump_iteration)
-from haploconduct_tpu.core.reads import ReadStore
-from haploconduct_tpu.io.subreads import SubreadDict
-from haploconduct_tpu.utils.config import Settings
-
+from ..core.reads import ReadStore
+from ..io.subreads import SubreadDict
+from ..utils.config import Settings
 from .iteration import overlaps_from_lines, run_iteration
+
+
+@dataclass
+class StageResult:
+    store: ReadStore  # final reads (contigs)
+    subreads: SubreadDict
+    overlap_lines: List[str]
+    iterations: int
+    history: List[dict] = field(default_factory=list)
+    phase_times: dict = field(default_factory=dict)  # summed over iterations
+
+
+@dataclass
+class StageParams:
+    stage: str  # 'a', 'b' or 'c'
+    min_overlap_len: int = 150
+    min_overlap_len_EC: Optional[int] = None
+    min_overlap_perc: int = 0
+    edge_threshold: float = 0.995
+    merge_contigs: float = 0.0  # error rate for mismatch-based merging
+    error_correction: bool = True  # stage a only
+    first_it: bool = True  # False when resuming from subreads
+    remove_branches: bool = False  # pipeline-level flag gating clique its
+    min_read_len: int = 0
+    diploid: bool = False
+    max_tip_len: int = 150
+    clique_size_EC: int = 4
+    original_readcount: int = 0
+    backend: str = "auto"
+    verbose: bool = False
+    output_dir: str = ""  # when set, per-iteration logs/stats/GFA land here
+    dump_dir: str = ""  # when set, snapshot itN_{fastq,overlaps,subreads} there
+    # when set, capture a torch.profiler Chrome trace of the whole stage
+    # here; phases appear as named host spans, CUDA kernels on the card
+    profile_dir: str = ""
+
+
+def _base_settings(p: StageParams, **overrides) -> Settings:
+    s = Settings(
+        min_overlap_perc=p.min_overlap_perc,
+        min_overlap_len=p.min_overlap_len,
+        edge_threshold=p.edge_threshold,
+        min_read_len=p.min_read_len,
+        max_tip_len=p.max_tip_len,
+        diploid=p.diploid,
+        original_readcount=p.original_readcount,
+        backend=p.backend,
+        verbose=p.verbose,
+        optimize=False,
+    )
+    return s.derive(**overrides)
+
+
+def _dump_iteration(dump_dir, iteration, store, sub, lines) -> None:
+    """Per-iteration snapshots in the reference's --copyfiles layout
+    (itN_singles.fastq etc.), for side-by-side parity debugging."""
+    from ..utils.checkpoint import save_state
+
+    d = os.path.join(dump_dir, "snap")
+    os.makedirs(d, exist_ok=True)
+    save_state(d, store, sub, None)
+    for fname in ("singles.fastq", "paired1.fastq", "paired2.fastq", "subreads.txt"):
+        src = os.path.join(d, fname)
+        if os.path.exists(src):
+            os.replace(src, os.path.join(dump_dir, f"it{iteration}_{fname}"))
+    with open(os.path.join(dump_dir, f"it{iteration}_overlaps.txt"), "w") as f:
+        for line in lines or []:
+            f.write(line.rstrip("\n") + "\n")
 
 
 def run_stage(

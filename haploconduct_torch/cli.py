@@ -1,11 +1,11 @@
 """Command-line front-end: ``python -m haploconduct_torch {savage,polyte,
 polyte-split,count-strains}``.
 
-The subcommands of haploconduct_tpu/cli.py with the same arguments, run
-through the port. --backend defaults to auto: the CUDA kernel when a card
-is present, the native host engine otherwise. polyte's --candidates auto
-re-overlaps contigs with the torch sort-join on the card when one is
-present.
+The subcommands of the reference CLI with the same arguments. --backend
+defaults to auto, the CUDA kernel on the card; without a card auto stops
+with an error, and the host engines run when named (--backend native or
+numpy). polyte's --candidates auto re-overlaps contigs with the torch
+sort-join on the card when one is present.
 """
 
 from __future__ import annotations
@@ -14,10 +14,25 @@ import argparse
 import os
 import sys
 
-from haploconduct_tpu.cli import _load_store, _write_contigs
-from haploconduct_tpu.core.reads import ReadStore
+from .core.reads import ReadStore, decode_seq
 
 BACKENDS = ["torch", "native", "numpy", "auto"]
+
+
+def _load_store(args) -> ReadStore:
+    if not (args.input_s or (args.input_p1 and args.input_p2)):
+        sys.exit("Please enter input fastq file(s) with -s and/or -p1,-p2.")
+    if bool(args.input_p1) != bool(args.input_p2):
+        sys.exit("For paired-end reads, please enter both -p1 and -p2.")
+    return ReadStore.from_files(
+        singles=args.input_s, paired1=args.input_p1, paired2=args.input_p2)
+
+
+def _write_contigs(path: str, store) -> None:
+    with open(path, "w") as f:
+        for i in range(len(store)):
+            seq = decode_seq(store.unit_codes(store.unit1[i]))
+            f.write(f">{int(store.ids[i])}\n{seq}\n")
 
 
 def cmd_savage(argv) -> int:
@@ -181,8 +196,8 @@ def cmd_polyte_split(argv) -> int:
 
 
 def cmd_count_strains(argv) -> int:
-    from haploconduct_tpu.io.fastq import read_fasta
-    from haploconduct_tpu.workflows.strain_count import strain_count_from_contigs
+    from .io.fastq import read_fasta
+    from .workflows.strain_count import strain_count_from_contigs
 
     ap = argparse.ArgumentParser(prog="haploconduct-torch count-strains")
     ap.add_argument("--contigs", required=True, help="contig fasta/fastq")

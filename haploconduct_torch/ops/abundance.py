@@ -1,22 +1,187 @@
-"""Contig abundance (pseudo-alignment + EM) — twin of
-haploconduct_tpu/ops/abundance.py:estimate_abundance.
+"""Contig abundance estimation: pseudo-alignment + EM (kallisto replacement).
 
-The index, the pseudo-alignment and the f64 host EM are the reference's.
-`_em_torch` replaces the jax EM (`_em_device`): the same 500 f32 steps
-w = alpha / eff_len, alpha <- w * M^T (cnt / (M w)), in torch ops on the
-scoring device. The dense matrix products go to torch.matmul, as the
-reference left them to XLA.
+The reference shells out to kallisto for contig abundance (TPM) after
+stages b/c (savage.py:780-821, freq_filtering at savage.py:719-777) and in
+freq_est's kallisto mode (savage/freq_est.py:230). This module rebuilds
+that model:
+
+- *pseudo-alignment*: each read is assigned the equivalence class of
+  contigs compatible with it — the intersection of the contig sets of its
+  k-mers (k=31, both strands), skipping k-mers absent from the index
+  (kallisto's intersection over observed k-mers);
+- *EM*: classic transcript-abundance EM over equivalence-class counts with
+  effective lengths eff_len = max(len - frag_len + 1, 1). Backend torch
+  runs 500 f32 steps w = alpha / eff_len, alpha <- w * M^T (cnt / (M w)) in
+  torch ops on the scoring device (the dense matrix products go to
+  torch.matmul); native and numpy run the f64 host EM;
+- *TPM*: (est_counts / eff_len) normalized to 1e6, matching kallisto's
+  abundance.tsv column.
+
+Host side builds the k-mer index with the same vectorized hashing as the
+overlap engine (ops/kmer.py).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from haploconduct_tpu.ops.abundance import (  # noqa: F401
-    AbundanceResult, PseudoIndex, _em_numpy, store_unit_seqs)
+from ..core.reads import revcomp_codes
+from .kmer import _kmer_hashes
+
+
+@dataclass
+class AbundanceResult:
+    names: List[str]
+    lengths: np.ndarray  # (T,) int64
+    eff_lengths: np.ndarray  # (T,) float64
+    est_counts: np.ndarray  # (T,) float64
+    tpm: np.ndarray  # (T,) float64
+    n_pseudoaligned: int
+    n_reads: int
+
+    def table(self) -> str:
+        """kallisto abundance.tsv layout."""
+        lines = ["target_id\tlength\teff_length\test_counts\ttpm"]
+        for i, name in enumerate(self.names):
+            lines.append(
+                f"{name}\t{int(self.lengths[i])}\t{self.eff_lengths[i]:g}\t"
+                f"{self.est_counts[i]:g}\t{self.tpm[i]:g}")
+        return "\n".join(lines) + "\n"
+
+
+class PseudoIndex:
+    """k-mer -> contig-set index over a contig panel (both strands)."""
+
+    def __init__(self, names: Sequence[str], seqs: Sequence[np.ndarray], k: int = 31):
+        self.names = list(names)
+        self.k = k
+        self.lengths = np.array([len(s) for s in seqs], dtype=np.int64)
+        hashes, tids = [], []
+        for t, sq in enumerate(seqs):
+            for strand_seq in (sq, revcomp_codes(sq)):
+                h = _kmer_hashes(strand_seq, k)
+                h = h[h >= 0]
+                hashes.append(h)
+                tids.append(np.full(len(h), t, dtype=np.int32))
+        h = np.concatenate(hashes) if hashes else np.zeros(0, np.int64)
+        t = np.concatenate(tids) if tids else np.zeros(0, np.int32)
+        # unique (hash, tid) pairs, sorted by hash
+        key = np.stack([h, t.astype(np.int64)], axis=1)
+        if len(key):
+            order = np.lexsort((key[:, 1], key[:, 0]))
+            key = key[order]
+            keep = np.ones(len(key), dtype=bool)
+            keep[1:] = np.any(key[1:] != key[:-1], axis=1)
+            key = key[keep]
+        self.h = key[:, 0] if len(key) else np.zeros(0, np.int64)
+        self.tid = key[:, 1].astype(np.int32) if len(key) else np.zeros(0, np.int32)
+
+    def n_targets(self) -> int:
+        return len(self.names)
+
+    def classify_all(self, read_seqs: Sequence[np.ndarray],
+                     chunk: int = 16384):
+        """Equivalence classes for ALL reads in vectorized passes —
+        identical semantics to per-read classify() (intersection of the
+        contig sets of the read's unique k-mers, skipping k-mers absent
+        from the index; None when nothing matches or the intersection is
+        empty), but ~50x faster: the per-read Python loop was 700s of the
+        10,000x envelope wall (BASELINE.md round 5).
+
+        Count formulation: contig t is in read r's class iff t appears in
+        the tid-list of EVERY matched k-mer of r, i.e. its (r, t) pair
+        count equals r's matched-k-mer count.
+
+        Returns (class_counts: {key: count}, class_members: {key:
+        int32 contig ids}, n_aligned); keys are the members arrays'
+        bytes."""
+        from scipy.sparse import csr_matrix
+
+        from .kmer import _kmer_table
+
+        T = self.n_targets()
+        class_counts: Dict[bytes, int] = {}
+        class_members: Dict[bytes, np.ndarray] = {}
+        n_aligned = 0
+        for start in range(0, len(read_seqs), chunk):
+            batch = read_seqs[start:start + chunk]
+            B = len(batch)
+            lens = np.fromiter(map(len, batch), np.int64, count=B)
+            h, rix, _ = _kmer_table(batch, lens, self.k, seed_step=1)
+            if len(h) == 0:
+                continue
+            # per-read unique hashes (classify() does np.unique per read)
+            order = np.lexsort((h, rix))
+            h, rix = h[order], rix[order]
+            first = np.ones(len(h), dtype=bool)
+            first[1:] = (h[1:] != h[:-1]) | (rix[1:] != rix[:-1])
+            h, rix = h[first], rix[first]
+            # chunk-unique hashes: high-coverage read sets share few
+            # distinct k-mers, so the index expansion happens ONCE per
+            # distinct hash and the per-(read, contig) counting rides a
+            # scipy CSR matmul instead of a flat expansion
+            uh, inv = np.unique(h, return_inverse=True)
+            lo = np.searchsorted(self.h, uh, side="left")
+            hi = np.searchsorted(self.h, uh, side="right")
+            hit_h = hi > lo
+            sel = hit_h[inv]
+            if not sel.any():
+                continue
+            rix_s, inv_s = rix[sel], inv[sel]
+            m_r = np.bincount(rix_s, minlength=B)
+            U = len(uh)
+            A = csr_matrix(
+                (np.ones(len(rix_s), np.int32), (rix_s, inv_s)),
+                shape=(B, U))
+            hcnt = (hi - lo)[hit_h]
+            Eh = int(hcnt.sum())
+            base = np.cumsum(hcnt) - hcnt
+            flat = (np.arange(Eh, dtype=np.int64)
+                    - np.repeat(base, hcnt) + np.repeat(lo[hit_h], hcnt))
+            rowsB = np.repeat(np.flatnonzero(hit_h), hcnt)
+            Bm = csr_matrix(
+                (np.ones(Eh, np.int32), (rowsB, self.tid[flat])),
+                shape=(U, T))
+            cnt = A @ Bm  # (B, T) sparse: co-occurrence counts
+            cnt.sort_indices()
+            row_nnz = np.diff(cnt.indptr)
+            keep = cnt.data == np.repeat(m_r, row_nnz)
+            rows = np.repeat(np.arange(B), row_nnz)[keep]
+            cols32 = cnt.indices[keep].astype(np.int32)
+            row_counts = np.bincount(rows, minlength=B)
+            offs = np.concatenate([[0], np.cumsum(row_counts)])
+            for r in np.flatnonzero(row_counts):
+                mem = cols32[offs[r]:offs[r + 1]]
+                key = mem.tobytes()
+                class_counts[key] = class_counts.get(key, 0) + 1
+                if key not in class_members:
+                    class_members[key] = mem
+                n_aligned += 1
+        return class_counts, class_members, n_aligned
+
+    def classify(self, read_codes: np.ndarray) -> Optional[frozenset]:
+        """Equivalence class (frozenset of contig ids) for one read, or
+        None when no k-mer matches the index (not pseudoaligned)."""
+        h = _kmer_hashes(read_codes, self.k)
+        h = np.unique(h[h >= 0])
+        if len(h) == 0:
+            return None
+        left = np.searchsorted(self.h, h, side="left")
+        right = np.searchsorted(self.h, h, side="right")
+        hit = right > left
+        if not np.any(hit):
+            return None
+        cls: Optional[frozenset] = None
+        for lo, hi in zip(left[hit], right[hit]):
+            tset = frozenset(int(t) for t in self.tid[lo:hi])
+            cls = tset if cls is None else (cls & tset)
+            if not cls:
+                return None
+        return cls
 
 
 def _em_torch(membership: np.ndarray, counts: np.ndarray,
@@ -34,6 +199,20 @@ def _em_torch(membership: np.ndarray, counts: np.ndarray,
         resp = cnt / torch.clamp(M @ w, min=1e-30)
         alpha = w * (M.T @ resp)
     return alpha.cpu().numpy().astype(np.float64)
+
+
+def _em_numpy(membership: np.ndarray, counts: np.ndarray,
+              eff_len: np.ndarray, iters: int) -> np.ndarray:
+    M = membership.astype(np.float64)
+    cnt = counts.astype(np.float64)
+    inv_el = 1.0 / eff_len
+    T = M.shape[1]
+    alpha = np.full(T, cnt.sum() / max(T, 1))
+    for _ in range(iters):
+        w = alpha * inv_el
+        denom = np.maximum(M @ w, 1e-300)
+        alpha = w * (M.T @ (cnt / denom))
+    return alpha
 
 
 def estimate_abundance(
@@ -79,3 +258,13 @@ def estimate_abundance(
     tpm = rate / max(rate.sum(), 1e-300) * 1e6
     return AbundanceResult(index.names, index.lengths, eff_len, alpha, tpm,
                            n_aligned, len(read_seqs))
+
+
+def store_unit_seqs(store) -> List[np.ndarray]:
+    """All sequence units of a ReadStore (singles, then /1 then /2 ends),
+    the same per-fragment view kallisto gets in --single mode
+    (savage.py:799-807 passes s, p1, p2 as independent single-end files)."""
+    out = []
+    for u in range(store.n_units):
+        out.append(store.unit_codes(u))
+    return out

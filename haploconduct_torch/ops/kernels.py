@@ -1,6 +1,6 @@
 """Build, load and launch the hand-written CUDA kernels of the port.
 
-`csrc/score_segments.cu` is compiled with nvcc for sm_90a into a shared
+`csrc/score_tasks.cu` is compiled with nvcc for sm_90a into a shared
 library with a plain C interface and bound with ctypes. The build happens
 at first use, into `build/torch_kernels/` at the root of the checkout
 (listed in .gitignore), and again whenever the source is newer than the
@@ -20,10 +20,21 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SCORE_SRC = _PKG / "csrc" / "score_segments.cu"
+SCORE_SRC = _PKG / "csrc" / "score_tasks.cu"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+
+
+def default_group(rw: int) -> int:
+    """Lanes of a warp that score one task together, by the matrix's row
+    width, which bounds every task's length: 4 for reads (up to 256 bp), a
+    warp for contigs. Each lane loads 16 bytes of each row per step.
+    Measured on one H100 (PERF.md): of 1 to 32 lanes, 2 and 4 are the
+    fastest at the read shapes (within 5% of each other), 32 at the
+    kb-contig shapes."""
+    return 4 if rw <= 256 else 32
+
 
 _libs: dict = {}
 # regions may be assembled on threads: loading and counting take this lock
@@ -72,53 +83,73 @@ def load() -> ctypes.CDLL:
         lib = _libs.get("score")
         if lib is None:
             lib = ctypes.CDLL(str(build(SCORE_SRC)))
-            fn = lib.hc_score_segments
-            p = ctypes.c_void_p
-            fn.argtypes = [p, ctypes.c_int64, p, p, p, p, ctypes.c_int64,
-                           ctypes.c_float, p, p, p, p, p]
+            fn = lib.hc_score_tasks
+            p, i64 = ctypes.c_void_p, ctypes.c_int64
+            fn.argtypes = [p, i64, p, p, p, p, i64, ctypes.c_float, ctypes.c_int,
+                           ctypes.c_int, p, p, p, p, p, p]
             fn.restype = ctypes.c_int
             _libs["score"] = lib
     return lib
 
 
-def score_segments_cuda(comb: torch.Tensor, rowa: torch.Tensor,
-                        rowb: torch.Tensor, posa: torch.Tensor,
-                        bolen: torch.Tensor, mismatch_thresh: float):
+def score_tasks_cuda(comb: torch.Tensor, lens: torch.Tensor, row_a: torch.Tensor,
+                     row_b: torch.Tensor, pos: torch.Tensor,
+                     mismatch_thresh: float, group: int = 0):
     """Launch the scoring kernel on the current stream of comb's device.
 
-    comb: (R, rw) int16 code | qual << 3 words; rowa/rowb/posa/bolen:
-    (n,) int32 subtask columns (ops/score.py:segment_tasks layout). Returns
-    (sum_log f32, counted i32, mismatches i32, rejected i32), each (n,).
-    The caller guarantees posa + seg_len and k * SEG + seg_len stay within
-    the rows' lengths (segment_tasks does). Raises on a refused launch."""
-    cols = (rowa, rowb, posa, bolen)
-    if not comb.is_cuda or comb.dtype != torch.int16 or comb.dim() != 2:
-        raise ValueError("comb must be a 2-D int16 CUDA tensor")
-    n = rowa.shape[0]
+    comb: (R, RW) int16 code | qual << 3 words, RW a multiple of 8 and the
+    storage 16-byte aligned (ops/score.py:pack_for_device); lens: (R,)
+    int32 row lengths <= RW; row_a, row_b, pos: (n,) int32 task columns.
+    Returns per task (sum_log f64, counted i32, mismatches i32, rejected
+    i32). The caller guarantees row ids in range and pos >= 0
+    (ops/score.py:score_tasks_torch checks). `group` (4 or 32) picks the
+    lanes per task (0: default_group of the row width). The kernel's
+    table is sized by the largest phred in comb, read here on the card
+    (the host waits for that read). Raises on a refused launch."""
+    group = group or default_group(comb.shape[1])
+    if group not in (4, 32):
+        raise ValueError("group must be 4 or 32")
+    if (not comb.is_cuda or comb.dtype != torch.int16 or comb.dim() != 2
+            or not comb.is_contiguous() or comb.shape[1] % 8
+            or comb.data_ptr() % 16):
+        raise ValueError("comb must be a contiguous 2-D int16 CUDA tensor, "
+                         "16-byte aligned, with rows of a multiple of 8 words")
+    n = row_a.shape[0]
+    if (lens.device != comb.device or lens.dtype != torch.int32
+            or lens.shape != (comb.shape[0],)):
+        raise ValueError("lens must be (R,) int32 on comb's device")
+    cols = (row_a, row_b, pos)
     for c in cols:
         if (c.device != comb.device or c.dtype != torch.int32
                 or c.dim() != 1 or c.shape[0] != n):
-            raise ValueError("subtask columns must be (n,) int32 on comb's device")
-    comb = comb.contiguous()
+            raise ValueError("task columns must be (n,) int32 on comb's device")
+    lens = lens.contiguous()
     cols = tuple(c.contiguous() for c in cols)
     dev = comb.device
-    sum_log = torch.empty(n, dtype=torch.float32, device=dev)
-    counted, mism, rej = (torch.empty(n, dtype=torch.int32, device=dev)
-                          for _ in range(3))
+    sum_log = torch.empty(n, dtype=torch.float64, device=dev)
+    # counted, mismatches, rejected and the kernel's tile counter in one block
+    ints = torch.empty(3 * n + 1, dtype=torch.int32, device=dev)
+    counted, mism, rej, tiles = ints[:n], ints[n:2 * n], ints[2 * n:3 * n], ints[3 * n:]
     if n == 0:
         return sum_log, counted, mism, rej
+    # the table covers phreds up to this one; a lower value would let
+    # lanes index past it
+    max_qual = int(comb.max()) >> 3
     lib = load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.hc_score_segments(
-            comb.data_ptr(), comb.shape[1], *(c.data_ptr() for c in cols), n,
-            float(mismatch_thresh), sum_log.data_ptr(), counted.data_ptr(),
-            mism.data_ptr(), rej.data_ptr(), stream)
+    args = (comb.data_ptr(), comb.shape[1], lens.data_ptr(),
+            *(c.data_ptr() for c in cols), n, float(mismatch_thresh), int(max_qual),
+            group, tiles.data_ptr(), sum_log.data_ptr(), counted.data_ptr(),
+            mism.data_ptr(), rej.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        err = lib.hc_score_tasks(*args)
+    else:  # the kernel launches on the current device
+        with torch.cuda.device(dev):
+            err = lib.hc_score_tasks(*args)
     if err != 0:
-        raise RuntimeError(f"score_segments kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"score_tasks kernel launch failed: CUDA error {err}")
     with _lock:
-        score_segments_cuda.launches += 1
+        score_tasks_cuda.launches += 1
     return sum_log, counted, mism, rej
 
 
-score_segments_cuda.launches = 0
+score_tasks_cuda.launches = 0

@@ -26,9 +26,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from haploconduct_tpu.core.reads import N_CODE, PAD_CODE, revcomp_codes
-from haploconduct_tpu.io.sfo import SFO_DTYPE
-from haploconduct_tpu.ops.kmer import _pack_keys, _verify_candidates
+from ..core.reads import N_CODE, PAD_CODE, revcomp_codes
+from ..io.sfo import SFO_DTYPE
+from .kmer import _pack_keys, _verify_candidates
 
 # join calls and their wall seconds per device type ("cuda", "cpu");
 # threads share them

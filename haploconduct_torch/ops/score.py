@@ -1,47 +1,242 @@
-"""Overlap scoring on a torch device — twin of haploconduct_tpu/ops/score.py
-(score_tasks_jax, xla_segment_body) and of the host half of
-ops/pallas_score.py (pack_for_pallas, score_tasks_pallas).
+"""Pairwise quality-aware overlap scoring — the assembler's hot loop, on a
+torch device.
 
-Tasks are cut into SEG=512-lane subtasks by the reference's segment_tasks,
-scored per subtask (f32 sum of log p, exact int32 counts), and summed back
-per task in f64 by the reference's reduce_segments_to_tasks. On a CUDA
-tensor the subtasks go through the hand-written kernel
-(ops/kernels.py:score_segments_cuda); on a CPU tensor through
-segment_scores_torch, the kernel's plain PyTorch version.
+Math (reference src/EdgeCalculator.cpp:26-139): for an aligned pair of
+sequence windows, each position contributes the probability that both bases
+were sequenced from the same haplotype, derived from the two phred error
+probabilities p1, p2:
+
+    match:     p = (1-p1)(1-p2) + p1*p2/3
+    mismatch:  p = (p1*(1-p2) + p2*(1-p1))/3 + (2/9)*p1*p2
+    either N:  position skipped entirely
+
+If any counted position has p < `mismatch_thresh` the overlap is rejected
+outright. Otherwise score = exp(mean log p) over counted positions and
+mismatch_rate = #mismatches / #counted.
+
+A *task* is (row_a, row_b, pos): score row_a[pos:] against row_b[0:], with
+rows taken from a PackedUnits matrix (orientation pre-resolved by row
+index). Degenerate cases (pos >= len_a, read shorter than min_read_len,
+zero counted positions) score 0 with mismatch_rate 1.0, exactly as the
+reference's early returns leave it (src/EdgeCalculator.cpp:74-84, 129-131).
+
+Backends:
+- score_tasks_numpy (float64): the oracle.
+- score_tasks_native (C++ OpenMP, float64): the host engine.
+- score_tasks_torch (float32 lanes): per task on a CUDA device through the
+  hand-written kernel (ops/kernels.py:score_tasks_cuda), on the CPU through
+  score_tasks_plain, the kernel's plain PyTorch version. Both sum log p in
+  f32 over at most SEG=512 lanes and add those segment sums per task in
+  f64, so callers can re-check any result within RECHECK_MARGIN of a
+  decision threshold on the oracle and f32 rounding never flips an edge
+  decision.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
-from haploconduct_tpu.core.reads import N_CODE
-from haploconduct_tpu.ops.pallas_score import SEG, segment_tasks
-from haploconduct_tpu.ops.score import TaskScores, reduce_segments_to_tasks
+from ..core.reads import N_CODE, PAD_CODE
+from .kernels import score_tasks_cuda
 
-from .kernels import score_segments_cuda
-
+RECHECK_MARGIN = 2e-3  # |score - threshold| below this -> redo in f64
+SEG = 512  # lanes per f32 partial sum (RECHECK_MARGIN is pinned on it)
+ROW_ALIGN = 8  # device rows are padded to 8 int16 words: 16-byte loads
 LOG10_OVER_10 = float(np.log(10.0) / 10.0)
 # subtasks per step of the plain version: its (chunk, SEG) temporaries
 # stay at tens of MB however long the stream is
 PLAIN_CHUNK = 1 << 14
 
 
+class TaskScores(NamedTuple):
+    """Raw per-task scoring results (arrays of shape (B,))."""
+
+    score: np.ndarray  # exp(mean log p), 0 for rejected/degenerate
+    mismatch_rate: np.ndarray  # mismatches / counted, 1.0 for degenerate
+    sum_log: np.ndarray
+    counted: np.ndarray
+    mismatches: np.ndarray
+    rejected: np.ndarray  # hard per-position reject (p < mismatch_thresh)
+
+
+@functools.lru_cache(maxsize=4)
+def _phred_lut(dtype_name: str) -> np.ndarray:
+    """Per-phred error probability, tabulated once (quals are uint8, so
+    256 entries cover every input; each entry is the same elementwise
+    expression the direct computation would evaluate -> bit-identical)."""
+    q = np.arange(256, dtype=np.dtype(dtype_name))
+    return np.power(10.0, -q / 10.0).astype(np.dtype(dtype_name))
+
+
+@functools.lru_cache(maxsize=1)
+def _pair_luts():
+    """(p, log p) keyed by (q1, q2, match) — the same-haplotype probability
+    algebra of EdgeCalculator.cpp:26-63 tabulated over all 256x256 phred
+    pairs. Entries are computed with the identical elementwise float64
+    expressions as the direct path, so gathered results are bit-identical;
+    this removes the per-position pow/log transcendentals (the 10x-scale
+    profile's top two hotspots)."""
+    p1 = _phred_lut("float64")[:, None]
+    p2 = _phred_lut("float64")[None, :]
+    p_match = (1.0 - p1) * (1.0 - p2) + (p1 * p2) / 3.0
+    p_mis = (p1 * (1.0 - p2) + p2 * (1.0 - p1)) / 3.0 + (2.0 / 9.0) * p1 * p2
+    return (p_match.ravel(), p_mis.ravel(),
+            np.log(p_match).ravel(), np.log(p_mis).ravel())
+
+
+def _empty_scores() -> TaskScores:
+    z = np.zeros(0)
+    zi = np.zeros(0, dtype=np.int64)
+    return TaskScores(z, z, z, zi, zi, np.zeros(0, dtype=bool))
+
+
+# --------------------------------------------------------------------------
+# NumPy oracle (float64)
+# --------------------------------------------------------------------------
+
+def score_tasks_numpy(
+    codes: np.ndarray,
+    quals: np.ndarray,
+    unit_lens_by_row: np.ndarray,
+    row_a: np.ndarray,
+    row_b: np.ndarray,
+    pos: np.ndarray,
+    mismatch_thresh: float = 0.0,
+    min_read_len: int = 0,
+) -> TaskScores:
+    """Vectorized float64 scoring over B tasks on padded (rows, W) matrices."""
+    B = len(row_a)
+    W = codes.shape[1]
+    if B == 0:
+        return _empty_scores()
+    pos = np.asarray(pos, dtype=np.int64)
+    len_a = unit_lens_by_row[row_a].astype(np.int64)
+    len_b = unit_lens_by_row[row_b].astype(np.int64)
+
+    a = codes[row_a]
+    b = codes[row_b]
+    qa = quals[row_a]
+    qb = quals[row_b]
+    col = np.arange(W, dtype=np.int64)[None, :]
+    idx = np.minimum(pos[:, None] + col, W - 1)
+    a_shift = np.take_along_axis(a, idx, axis=1)
+    qa_shift = np.take_along_axis(qa, idx, axis=1)
+
+    L = np.minimum(len_a - pos, len_b)
+    valid = col < L[:, None]
+    either_n = (a_shift >= N_CODE) | (b >= N_CODE)  # N or PAD
+    counted_mask = valid & ~either_n
+
+    match = a_shift == b
+    # (q1, q2) -> probability via the tabulated pair algebra (bit-identical
+    # to computing pow/log per position; see _pair_luts)
+    lut_match, lut_mis, lut_logm, lut_logx = _pair_luts()
+    pair_idx = (qa_shift.astype(np.int32) << 8) | qb
+    log_p = np.where(match, lut_logm[pair_idx], lut_logx[pair_idx])
+
+    if mismatch_thresh > 0.0:
+        p = np.where(match, lut_match[pair_idx], lut_mis[pair_idx])
+        rejected = np.any(counted_mask & (p < mismatch_thresh), axis=1)
+    else:
+        rejected = np.zeros(B, dtype=bool)
+    sum_log = np.sum(np.where(counted_mask, log_p, 0.0), axis=1)
+    counted = np.sum(counted_mask, axis=1).astype(np.int64)
+    mismatches = np.sum(counted_mask & ~match, axis=1).astype(np.int64)
+
+    degenerate = (pos >= len_a) | (len_a < min_read_len) | (len_b < min_read_len) | (counted == 0)
+    ok = ~degenerate & ~rejected
+    with np.errstate(divide="ignore", invalid="ignore"):
+        score = np.where(ok, np.exp(sum_log / np.maximum(counted, 1)), 0.0)
+        mism_rate = np.where(ok, mismatches / np.maximum(counted, 1), 1.0)
+    return TaskScores(score, mism_rate, sum_log, counted, mismatches, rejected)
+
+
+# --------------------------------------------------------------------------
+# Native host backend (C++ OpenMP, float64)
+# --------------------------------------------------------------------------
+
+def score_tasks_native(
+    codes: np.ndarray,
+    quals: np.ndarray,
+    unit_lens_by_row: np.ndarray,
+    row_a: np.ndarray,
+    row_b: np.ndarray,
+    pos: np.ndarray,
+    mismatch_thresh: float = 0.0,
+    min_read_len: int = 0,
+) -> "TaskScores | None":
+    """C++ OpenMP host engine (native/baseline_score.cpp:score_tasks_exact).
+
+    One fused pass per task instead of numpy's ~10 full-matrix passes —
+    ~20x the oracle's host throughput. Per-position probabilities come from
+    the same _pair_luts() tables as the oracle, so only the serial (vs
+    pairwise) summation order differs; callers run the f64 re-scoring
+    (ops/verify.py) so edge decisions are bit-identical to the oracle.
+    Returns None when the extension cannot be built.
+    """
+    from ..native import load_baseline_ext
+
+    ext = load_baseline_ext()
+    if ext is None or not hasattr(ext._m, "score_tasks_exact"):
+        return None
+    if len(row_a) == 0:
+        return _empty_scores()
+    out = ext.score_tasks_exact(
+        codes, quals, unit_lens_by_row, row_a, row_b, pos,
+        mismatch_thresh, min_read_len, _pair_luts())
+    return TaskScores(*out)
+
+
+# --------------------------------------------------------------------------
+# Torch device backend (float32 lanes, f64 per-task sums)
+# --------------------------------------------------------------------------
+
 def pack_for_device(codes: np.ndarray, quals: np.ndarray, device) -> torch.Tensor:
-    """(R, W) codes/quals -> (R, W) int16 code | qual << 3 words on
-    `device` (the word layout of pallas_score.pack_for_pallas, without its
-    TPU-only row rounding and slack columns)."""
-    comb = codes.astype(np.int16) | (quals.astype(np.int16) << 3)
+    """(R, W) codes/quals -> (R, RW) int16 code | qual << 3 words on
+    `device`, RW = W rounded up to a multiple of ROW_ALIGN; the pad words
+    are PAD_CODE with qual 0, so every row starts on a 16-byte boundary."""
+    r, w = codes.shape
+    rw = -(-w // ROW_ALIGN) * ROW_ALIGN
+    comb = np.full((r, rw), PAD_CODE, dtype=np.int16)
+    comb[:, :w] = codes.astype(np.int16) | (quals.astype(np.int16) << 3)
     return torch.from_numpy(comb).to(device)
+
+
+def segment_tasks(row_a, row_b, pos, L):
+    """Decompose tasks into SEG-lane subtasks.
+
+    Returns (s_rowa, s_rowb, s_posa, s_bolen, task_bounds) where
+    task_bounds are np.add.reduceat boundaries mapping subtask outputs back
+    to tasks. Row ids stay full int32 (no 16-bit packing), so the subtask
+    stream addresses packed matrices of any height. Degenerate tasks
+    (L <= 0) get one zero-length subtask so every task produces exactly one
+    reduction slot.
+    """
+    L = np.maximum(L, 0)
+    nseg = np.maximum((L + SEG - 1) // SEG, 1).astype(np.int64)
+    total = int(nseg.sum())
+    task_of = np.repeat(np.arange(len(L), dtype=np.int64), nseg)
+    bounds = np.concatenate([[0], np.cumsum(nseg)[:-1]])
+    k = np.arange(total, dtype=np.int64) - np.repeat(bounds, nseg)
+    bo = k * SEG
+    seg_len = np.minimum(L[task_of] - bo, SEG)
+    s_rowa = row_a[task_of].astype(np.int32)
+    s_rowb = row_b[task_of].astype(np.int32)
+    s_posa = (pos[task_of].astype(np.int64) + bo).astype(np.int32)
+    s_bolen = ((k << 10) | seg_len).astype(np.int32)
+    return s_rowa, s_rowb, s_posa, s_bolen, bounds
 
 
 def segment_scores_torch(comb: torch.Tensor, rowa: torch.Tensor,
                          rowb: torch.Tensor, posa: torch.Tensor,
                          bolen: torch.Tensor, mismatch_thresh: float):
-    """Plain PyTorch version of the scoring kernel (twin of
-    xla_segment_body): per subtask (sum_log f32, counted, mismatches,
-    rejected int32). Lanes past seg_len are masked; their clamped
-    gathers stay inside the row."""
+    """Per SEG-lane subtask (the reference's xla_segment_body): sum_log
+    f32, counted, mismatches and rejected int32. Lanes past seg_len are
+    masked; their clamped gathers stay inside the row."""
     n = rowa.shape[0]
     if n == 0:
         return (torch.zeros(0, dtype=torch.float32, device=comb.device),
@@ -75,14 +270,58 @@ def segment_scores_torch(comb: torch.Tensor, rowa: torch.Tensor,
     return tuple(torch.cat(o) for o in outs)
 
 
-def segment_scores(comb: torch.Tensor, rowa, rowb, posa, bolen,
-                   mismatch_thresh: float):
+def score_tasks_plain(comb: torch.Tensor, lens: torch.Tensor,
+                      row_a: torch.Tensor, row_b: torch.Tensor,
+                      pos: torch.Tensor, mismatch_thresh: float):
+    """Plain PyTorch version of the scoring kernel, on comb's device: per
+    task (sum_log f64, counted, mismatches, rejected int32). Each task is
+    cut into SEG-lane subtasks (segment_tasks), each subtask summed in f32
+    (segment_scores_torch), and the subtask sums added per task in f64,
+    in segment order on the CPU."""
+    dev = comb.device
+    n = row_a.shape[0]
+    lens64 = lens.to(torch.int64)
+    ra, rb, p = (c.to(torch.int64) for c in (row_a, row_b, pos))
+    len_a, len_b = lens64[ra], lens64[rb]
+    L = torch.where(p >= len_a, 0, torch.minimum(len_a - p, len_b))
+    *cols, bounds = segment_tasks(ra.cpu().numpy(), rb.cpu().numpy(),
+                                  p.cpu().numpy(), L.cpu().numpy())
+    sub = segment_scores_torch(comb, *(torch.from_numpy(c).to(dev) for c in cols),
+                               mismatch_thresh)
+    nseg = np.diff(np.append(bounds, len(cols[0])))
+    task_of = torch.from_numpy(np.repeat(np.arange(n), nseg)).to(dev)
+    sum_log = torch.zeros(n, dtype=torch.float64, device=dev).index_add_(
+        0, task_of, sub[0].to(torch.float64))
+    ints = tuple(torch.zeros(n, dtype=torch.int32, device=dev).index_add_(0, task_of, s)
+                 for s in sub[1:])
+    return (sum_log, *ints)
+
+
+def score_tasks(comb: torch.Tensor, lens, row_a, row_b, pos,
+                mismatch_thresh: float):
     """The kernel on a CUDA tensor, its plain version on a CPU tensor."""
     if comb.is_cuda:
-        return score_segments_cuda(comb, rowa, rowb, posa, bolen, mismatch_thresh)
+        return score_tasks_cuda(comb, lens, row_a, row_b, pos, mismatch_thresh)
     if comb.device.type != "cpu":
         raise ValueError(f"no scoring kernel for device {comb.device}")
-    return segment_scores_torch(comb, rowa, rowb, posa, bolen, mismatch_thresh)
+    return score_tasks_plain(comb, lens, row_a, row_b, pos, mismatch_thresh)
+
+
+def finish_task_scores(sum_log, counted, mism, rejected, pos64, len_a, len_b,
+                       min_read_len: int) -> TaskScores:
+    """Per-task sums -> TaskScores: the degenerate rules, score and the
+    mismatch rate, in f64 on the host."""
+    sum_log = np.asarray(sum_log, np.float64)
+    counted = np.asarray(counted).astype(np.int64)
+    mism = np.asarray(mism).astype(np.int64)
+    rejected = np.asarray(rejected) > 0
+    degenerate = ((pos64 >= len_a) | (len_a < min_read_len)
+                  | (len_b < min_read_len) | (counted == 0))
+    ok = ~degenerate & ~rejected
+    with np.errstate(divide="ignore", invalid="ignore"):
+        score = np.where(ok, np.exp(sum_log / np.maximum(counted, 1)), 0.0)
+        mism_rate = np.where(ok, mism / np.maximum(counted, 1), 1.0)
+    return TaskScores(score, mism_rate, sum_log, counted, mism, rejected)
 
 
 def score_tasks_torch(
@@ -96,18 +335,14 @@ def score_tasks_torch(
     min_read_len: int = 0,
     device="cpu",
 ) -> TaskScores:
-    """Score tasks on `device`; the contract of score_tasks_jax /
-    score_tasks_pallas (a TaskScores of numpy arrays). On a CUDA device
-    the kernel runs or this raises; it never falls back to the CPU."""
+    """Score tasks on `device` (a TaskScores of numpy arrays). On a CUDA
+    device the kernel runs or this raises; it never falls back to the CPU."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("score_tasks_torch: CUDA device requested but "
                            "torch.cuda.is_available() is False")
-    b = len(row_a)
-    if b == 0:
-        z = np.zeros(0)
-        return TaskScores(z, z, z, z.astype(np.int64), z.astype(np.int64),
-                          z.astype(bool))
+    if len(row_a) == 0:
+        return _empty_scores()
     lens = np.asarray(lens_by_row).astype(np.int64)
     r, w = codes.shape
     row_a = np.asarray(row_a, np.int64)
@@ -119,17 +354,10 @@ def score_tasks_torch(
             max(int(row_a.max()), int(row_b.max())) >= r:
         raise ValueError("task row ids out of range")
     pos64 = np.asarray(pos, dtype=np.int64)
-    if int(pos64.min()) < 0:
-        raise ValueError("task positions must be >= 0")
-    len_a = lens[row_a]
-    len_b = lens[row_b]
-    L = np.minimum(len_a - pos64, len_b)
-    L = np.where(pos64 >= len_a, 0, L)
-    s_rowa, s_rowb, s_posa, s_bolen, bounds = segment_tasks(row_a, row_b, pos64, L)
-
+    if int(pos64.min()) < 0 or int(pos64.max()) >= 2**31:
+        raise ValueError("task positions must lie in [0, 2^31)")
     comb = pack_for_device(codes, quals, device)
-    cols = [torch.from_numpy(c).to(device) for c in (s_rowa, s_rowb, s_posa, s_bolen)]
-    sub = segment_scores(comb, *cols, float(mismatch_thresh))
-    sub_cols = [c.cpu().numpy() for c in sub]
-    return reduce_segments_to_tasks(sub_cols, bounds, pos64, len_a, len_b,
-                                    int(min_read_len))
+    cols = [torch.from_numpy(c.astype(np.int32)).to(device)
+            for c in (lens, row_a, row_b, pos64)]
+    sums = [c.cpu().numpy() for c in score_tasks(comb, *cols, float(mismatch_thresh))]
+    return finish_task_scores(*sums, pos64, lens[row_a], lens[row_b], int(min_read_len))

@@ -1,4 +1,4 @@
-"""Multi-process work sharding — twin of haploconduct_tpu/parallel/distributed.py.
+"""Multi-process work sharding over torch.distributed.
 
 Single process first: torch.distributed is used only when a process group
 is already initialized, or when the standard RANK / WORLD_SIZE variables
@@ -7,7 +7,8 @@ CUDA each rank first takes its own card (LOCAL_RANK, else RANK modulo the
 card count), so scoring and NCCL's object collectives use that card. Work
 items are round-robined over ranks and the per-item results are gathered
 back to every rank with all_gather_object, so the joint stages run
-replicated. The store/subread encoding is the reference's.
+replicated. A (ReadStore, SubreadDict) pair travels as JSON, its
+subreads in the reference's subreads.txt text format.
 """
 
 from __future__ import annotations
@@ -16,8 +17,8 @@ import json
 import os
 from typing import List, Sequence
 
-from haploconduct_tpu.parallel.distributed import (  # noqa: F401
-    decode_store_subreads, encode_store_subreads)
+from ..core.reads import ReadStore
+from ..io.subreads import subreads_from_text, subreads_to_text
 
 
 def _dist():
@@ -76,6 +77,40 @@ def allgather_bytes(payload: bytes) -> List[bytes]:
     return gathered
 
 
+def encode_store_subreads(store, subreads) -> dict:
+    """JSON-serializable form of a (ReadStore, SubreadDict) pair; the
+    subreads travel in the reference's subreads.txt text format."""
+    if store is None:
+        return None
+    singles = []
+    paired = []
+    for i in range(len(store)):
+        rid = store.ids[i]
+        if store.is_paired[i]:
+            paired.append((rid, store.seq_str(i, 1), store.phred_str(i, 1),
+                           store.seq_str(i, 2), store.phred_str(i, 2)))
+        else:
+            singles.append((rid, store.seq_str(i), store.phred_str(i)))
+    return {
+        "singles": singles,
+        "paired": paired,
+        "subreads": subreads_to_text(subreads) if subreads else "",
+    }
+
+
+def decode_store_subreads(blob):
+    if blob is None:
+        return None, None
+    store = ReadStore()
+    for rid, seq, phred in blob["singles"]:
+        store.add_single(int(rid), seq, phred)
+    store.readcount_single = len(blob["singles"])
+    for rid, s1, p1, s2, p2 in blob["paired"]:
+        store.add_paired(int(rid), s1, p1, s2, p2)
+    sub = subreads_from_text(blob["subreads"]) if blob["subreads"] else None
+    return store, sub
+
+
 def allgather_indexed(items: Sequence, indices: Sequence[int], n_total: int,
                       encode, decode, allow_missing: bool = False) -> list:
     """Merge per-process work results back into dense index order on every
@@ -99,7 +134,7 @@ def allgather_indexed(items: Sequence, indices: Sequence[int], n_total: int,
 def allgather_stage_results(results: Sequence, indices: Sequence[int],
                             n_total: int) -> list:
     """allgather_indexed specialization for assemble.stages.StageResult."""
-    from haploconduct_tpu.assemble.stages import StageResult
+    from ..assemble.stages import StageResult
 
     def encode(res) -> dict:
         blob = encode_store_subreads(res.store, res.subreads)

@@ -1,34 +1,114 @@
-"""POLYTE: diploid/polyploid haplotig assembly — twin of
-haploconduct_tpu/workflows/polyte.py.
+"""POLYTE workflow: diploid/polyploid haplotig assembly at low coverage.
 
-The configuration, the result, the read-set concatenation and the rule
-that admits the device join (`_device_candidates_ok`) are the reference's.
-The twins differ in what they call: every iteration runs the port's
-`run_iteration` (overlap verification through the scoring kernel on a
-card), and every exact re-overlap pass that the rule admits goes through
-the port's k-mer sort-join (ops/kmer_device.py) on the scoring device
-when a card is present. An error on the card is raised, never answered
-by the host join.
+In-memory rebuild of the reference polyte.py:
+- preprocessing concatenates singles + /1 + /2 into one single-end read set
+  renamed 0..N-1 (polyte.py:275-305);
+- candidate overlaps via the k-mer engine at min_overlap_len_EC =
+  2 + 0.5 * readlen (polyte.py:258-266), verified at the sfo error rate;
+- evidence threshold table (workflows/min_ev_table.py) from read length,
+  internal segment size and haplotype coverage (polyte.py:804-830);
+- iteration scheme (polyte.py:574-673): one EC clique iteration
+  (edge_threshold 0.95), then loop { merge iterations (cliques=false,
+  edge_threshold=1 => mismatch-rate-only edges) until read count stable;
+  one BranchReduction clique iteration } until converged, plus a final
+  cleanup iteration. Unlike SAVAGE, overlaps are RECOMPUTED on the contigs
+  every iteration (exact, sfo_err=0) instead of FNO-induced
+  (polyte.py:739-746);
+- optional diploid round re-runs the loop with --diploid and subreads
+  carry-over (polyte.py:376-423).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from haploconduct_tpu.core.reads import ReadStore
-from haploconduct_tpu.io.overlaps import empty_overlaps
-from haploconduct_tpu.io.sfo import sfo_to_overlaps
-from haploconduct_tpu.io.subreads import SubreadDict
-from haploconduct_tpu.ops.kmer import find_overlap_candidates
-from haploconduct_tpu.utils.config import Settings
-from haploconduct_tpu.workflows.min_ev_table import build_threshold_table
-from haploconduct_tpu.workflows.polyte import (  # noqa: F401
-    PolyteConfig, PolyteResult, _device_candidates_ok, concat_to_single_end)
-
+from ..core.reads import ReadStore
+from ..io.sfo import sfo_to_overlaps
+from ..io.subreads import SubreadDict
+from ..ops.kmer import find_overlap_candidates
+from ..utils.config import Settings
 from ..assemble.iteration import run_iteration
+from ..io.overlaps import empty_overlaps
+from .min_ev_table import build_threshold_table
+
+
+@dataclass
+class PolyteConfig:
+    hap_cov: float = 0.0  # >0 enables read-based branch reduction
+    insert_size: float = 0.0  # required
+    stddev: float = 0.0  # required
+    min_overlap_len: int = 50
+    min_overlap_len_EC: Optional[int] = None  # default 2 + 0.5*readlen
+    merge_contigs: float = 0.0  # --mismatch_rate
+    min_clique_size: int = 3
+    sfo_err: float = 0.02
+    error_correction: bool = True
+    diploid: bool = False
+    diploid_contig_len: int = 0
+    diploid_overlap_len: Optional[int] = None
+    average_read_len: Optional[float] = None
+    max_tip_len: Optional[int] = None
+    original_SE_count: int = -1  # split mode
+    original_PE_count: int = -1
+    backend: str = "auto"
+    kmer_k: int = 20
+    # per-iteration re-overlap engine: "auto" uses the torch sort-join
+    # (ops/kmer_device.py) on the card for exact passes when a card is
+    # present, the host k-mer join otherwise; "host"/"device" force one
+    candidates: str = "auto"
+    verbose: bool = False
+
+
+@dataclass
+class PolyteResult:
+    store: Optional[ReadStore]
+    subreads: Optional[SubreadDict]
+    diploid_store: Optional[ReadStore] = None
+    diploid_subreads: Optional[SubreadDict] = None
+    iterations: int = 0
+    history: List[dict] = field(default_factory=list)
+
+
+def concat_to_single_end(store: ReadStore) -> ReadStore:
+    """cat singles + paired1 + paired2 -> renamed single-end store
+    (polyte.py:281-290)."""
+    out = ReadStore()
+    ns = store.readcount_single
+    npair = len(store) - ns
+    nid = 0
+    for i in range(ns):
+        u1, _ = store.units_of(i)
+        out.add_single_codes(nid, store.unit_codes(u1), store.unit_quals(u1))
+        nid += 1
+    for j in range(npair):
+        u1, _ = store.units_of(ns + j)
+        out.add_single_codes(nid, store.unit_codes(u1), store.unit_quals(u1))
+        nid += 1
+    for j in range(npair):
+        _, u2 = store.units_of(ns + j)
+        out.add_single_codes(nid, store.unit_codes(u2), store.unit_quals(u2))
+        nid += 1
+    out.readcount_single = nid
+    return out
+
+
+def _device_candidates_ok(min_overlap_len: int, sfo_err: float, n: int) -> bool:
+    """The device join (ops/kmer_device.py, k<=15) provably finds the same
+    verified candidate set as the host engine (k=20) only for EXACT
+    re-overlap passes: with error_rate=0 every surviving candidate is a
+    0-mismatch diagonal overlap of length >= min_overlap_len, and any such
+    overlap contains exact k-mers for both k=15 and k=20 at full seed
+    density — so the two engines' verified outputs coincide whenever
+    min_overlap_len >= 20 (above 1500 sequences the host engine subsamples
+    seeds, so there the device set is the *complete* one and the host's a
+    documented-miss-rate subset). Approximate passes (sfo_err > 0)
+    seed-match differently between k=15 and k=20, so those stay on the
+    host engine."""
+    return sfo_err == 0.0 and min_overlap_len >= 20 and 0 < n < (1 << 16)
 
 
 def _resolve_engine(engine: str, min_overlap_len: int, sfo_err: float,

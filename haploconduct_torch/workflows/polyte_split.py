@@ -1,15 +1,24 @@
-"""polyte-split: large-genome (>100 kb) pipeline — twin of
-haploconduct_tpu/workflows/polyte_split.py:run_polyte_split.
+"""polyte-split: large-genome (>100kb) pipeline.
 
-The configuration, region detection and window placement are the
-reference's; the orchestration is the reference's, line for line, over the
-port's POLYTE, process-group helpers and reference-guided candidates.
-Differences: a region whose assembly raises is still skipped, as in the
-reference, but it is recorded in `PolyteSplitResult.failed_regions` with
-its exception; a RuntimeError (the kernel wrapper's, CUDA's, out of
-memory on the card) is raised, not skipped, since the host assembly code
-raises none; and with pool_size > 1 the region threads score on the
-calling thread's card.
+Rebuild of polyte-split.py: align all reads to the reference, detect
+covered regions from the depth profile, bin reads into `split_size`
+windows with `split_overlap` halos, run POLYTE per region, concatenate the
+per-region contigs with contig-id re-offsetting (original-read provenance
+stays global), and finish with a reference-guided POLYTE pass over the
+combined contigs (hap_cov=0, no EC).
+
+Uses the built-in seed aligner (ops/align.py) in place of bwa mem -a +
+samtools (absent in this environment); each read is placed at its best
+diagonal, so the depth/binning behavior matches samtools' primary
+alignments rather than `-a` all-alignments.
+
+Every region runs the port's POLYTE (verification through the scoring
+kernel, exact re-overlap passes through the join on the card). A region
+whose assembly raises is skipped, as in the reference, and recorded in
+`PolyteSplitResult.failed_regions` with its exception; a RuntimeError (the
+kernel wrapper's, CUDA's, out of memory on the card) is raised, not
+skipped, since the host assembly code raises none. With pool_size > 1 the
+region threads score on the calling thread's card.
 """
 
 from __future__ import annotations
@@ -17,20 +26,87 @@ from __future__ import annotations
 from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Tuple
 
-from haploconduct_tpu.core.reads import ReadStore
-from haploconduct_tpu.io.subreads import SubreadDict
-from haploconduct_tpu.workflows import polyte_split as _ref
-from haploconduct_tpu.workflows.polyte_split import (  # noqa: F401
-    PolyteSplitConfig, detect_regions, split_windows)
+import numpy as np
 
-from .polyte import PolyteResult, concat_to_single_end, run_polyte
+from ..core.reads import ReadStore
+from ..io.subreads import SubreadDict
+from .polyte import PolyteConfig, PolyteResult, concat_to_single_end, run_polyte
 
 
 @dataclass
-class PolyteSplitResult(_ref.PolyteSplitResult):
+class PolyteSplitConfig(PolyteConfig):
+    reference: str = ""
+    split_size: int = 10000
+    split_overlap: int = 1000
+    min_region_reads: int = 100  # file_len >= 400 lines
+    min_region_depth: int = 2  # maxdepth > 2 required to keep a region
+    pool_size: int = 1  # parallel regions (polyte-split.py --pool_size)
+
+
+@dataclass
+class PolyteSplitResult:
+    combined_store: Optional[ReadStore]
+    combined_subreads: Optional[SubreadDict]
+    final: Optional[PolyteResult]
+    regions: List[Tuple[str, int, int]] = field(default_factory=list)
+    region_results: List[PolyteResult] = field(default_factory=list)
+    # diagnostics: the final pass's reference-coordinate candidate count
+    # (>0 proves the ref-guided path ran, polyte-split.py:389-430)
+    final_ref_candidates: int = 0
     # (region, repr of the exception) for every region whose assembly
     # failed and was skipped
     failed_regions: List[Tuple[Tuple[str, int, int], str]] = field(default_factory=list)
+
+
+def detect_regions(alignments, ref_lengths: Dict[str, int], average_read_len: float,
+                   min_depth: int = 2):
+    """Covered-region detection from the depth profile
+    (polyte-split.py:267-295): maximal runs of nonzero depth, kept when
+    max depth > min_depth and length > average read length."""
+    regions: Dict[str, List[Tuple[int, int]]] = {name: [] for name in ref_lengths}
+    for name, length in ref_lengths.items():
+        depth = np.zeros(length + 1, dtype=np.int64)
+        for rec in alignments:
+            if rec.rname != name:
+                continue
+            a = max(0, rec.pos - 1)
+            b = min(length, rec.pos - 1 + len(rec.seq))
+            depth[a] += 1
+            depth[b] -= 1
+        cov = np.cumsum(depth[:-1])
+        covered = cov > 0
+        if not covered.any():
+            continue
+        edges = np.flatnonzero(np.diff(np.concatenate([[0], covered.view(np.int8), [0]])))
+        for s, e in zip(edges[::2], edges[1::2]):
+            if cov[s:e].max() > min_depth and (e - s) > average_read_len:
+                regions[name].append((int(s) + 1, int(e)))  # 1-based inclusive
+    return regions
+
+
+def split_windows(regions: Dict[str, List[Tuple[int, int]]],
+                  ref_lengths: Dict[str, int], split_size: int,
+                  split_overlap: int) -> Dict[str, List[Tuple[int, int]]]:
+    """Window placement loop (polyte-split.py:300-323)."""
+    out: Dict[str, List[Tuple[int, int]]] = {}
+    for chrom, region_list in regions.items():
+        if not region_list:
+            continue
+        windows = []
+        length = ref_lengths[chrom]
+        idx = 0
+        pos = split_size + region_list[idx][0]
+        while idx < len(region_list):
+            if region_list[idx][0] >= pos:
+                pos = region_list[idx][0] + split_size
+            lb = max(0, pos - (split_size + split_overlap))
+            ub = min(length, pos)
+            windows.append((lb, ub))
+            while idx < len(region_list) and region_list[idx][1] < pos:
+                idx += 1
+            pos += split_size
+        out[chrom] = windows
+    return out
 
 
 def same_card_initializer():
@@ -45,7 +121,7 @@ def same_card_initializer():
 
 
 def run_polyte_split(store: ReadStore, cfg: PolyteSplitConfig) -> PolyteSplitResult:
-    from haploconduct_tpu.ops.align import ReferenceIndex, align_store
+    from ..ops.align import ReferenceIndex, align_store
 
     assert cfg.reference, "polyte-split requires a reference"
     single_store = concat_to_single_end(store)

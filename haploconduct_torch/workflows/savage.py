@@ -1,31 +1,238 @@
-"""SAVAGE de novo assembly, stages a -> b -> c — twin of
-haploconduct_tpu/workflows/savage.py:run_savage.
+"""SAVAGE workflow: de novo viral quasispecies assembly, stages a -> b -> c.
 
-The orchestration is the reference's, line for line, over the twins of
-run_stage, the process-group helpers and estimate_abundance; the patch
-split (seeded random.Random(0)), candidate generation, contig combination
-and frequency tables are the reference's own functions. Reference-guided
-mode (SavageConfig.reference) induces stage a's candidates from the
-reference's seed aligner (ReferenceIndex, ref_guided_candidates: no jax).
+In-memory rebuild of the reference's savage.py orchestration:
+- preprocessing: random patch split (seeded like scripts/random_split_fastq)
+  and /2 revcomp option (savage.py:286-342);
+- candidate overlaps per patch via the k-mer engine (replacing
+  rust-overlaps + sfo2overlaps, savage.py:643-677);
+- stage a per patch (error correction + merging, pipeline_per_stage);
+- combine patch contigs paired-to-single with global subread re-keying
+  (scripts/combine_contigs.py);
+- stage b on the combined contigs (contig overlaps at 0.5% error), stage c
+  with mismatch-rate contig merging, optional diploid round
+  (savage.py:401-566);
+- quick-mode frequency estimation (workflows/freq_est.py).
+
+Verification in every stage goes through the port's scorer (the CUDA
+kernel on a card), and the b/c abundance filters through its EM.
 """
 
 from __future__ import annotations
 
 import os
+import random
 import sys
 import time
-from typing import Dict, List, Optional
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from haploconduct_tpu.core.reads import ReadStore
-from haploconduct_tpu.io.subreads import SubreadDict
-from haploconduct_tpu.workflows.savage import (  # noqa: F401
-    SavageConfig, SavageResult, _freqs, _original_readcount,
-    combine_patch_contigs, contig_candidates, denovo_candidates,
-    ref_guided_candidates, split_into_patches)
-
+from ..core.reads import ReadStore, revcomp_codes
+from ..io.sfo import sfo_to_overlaps
+from ..io.subreads import OriginalIndex, SubreadDict
+from ..ops.kmer import find_overlap_candidates
 from ..assemble.stages import StageParams, StageResult, run_stage
+from .freq_est import FreqResult, estimate_frequencies
+
+
+@dataclass
+class SavageConfig:
+    min_overlap_len: Optional[int] = None  # default 0.6 * avg read len
+    split_num: int = 1
+    reference: Optional[str] = None  # fasta path -> reference-guided mode
+    revcomp: bool = False
+    merge_contigs: float = 0.0
+    min_clique_size: int = 4
+    overlap_len_stage_c: int = 100
+    contig_len_stage_c: int = 100
+    remove_branches: bool = True  # savage default (--keep_branches disables)
+    sfo_mm: int = 50
+    diploid: bool = False
+    diploid_contig_len: int = 200
+    diploid_overlap_len: int = 30
+    average_read_len: Optional[float] = None
+    max_tip_len: Optional[int] = None
+    use_subreads: bool = True
+    stage_a: bool = True
+    stage_b: bool = True
+    stage_c: bool = True
+    filtering: bool = True  # abundance-based contig filtering (--no_filtering)
+    output_dir: Optional[str] = None  # enables stage-granular checkpoints
+    resume: bool = False  # reuse completed stage checkpoints (reference
+    # savage.py --no_stage_a/--no_stage_b skip semantics, files-based)
+    backend: str = "auto"
+    kmer_k: int = 20
+    profile_dir: str = ""  # a torch.profiler Chrome trace per stage
+    verbose: bool = False
+    progress: bool = False  # one stderr line per patch/stage (envelope runs)
+
+
+@dataclass
+class SavageResult:
+    stage_a: Optional[StageResult] = None
+    stage_b: Optional[StageResult] = None
+    stage_c: Optional[StageResult] = None
+    diploid: Optional[StageResult] = None
+    combined_store: Optional[ReadStore] = None
+    combined_subreads: Optional[SubreadDict] = None
+    frequencies: Dict[str, FreqResult] = field(default_factory=dict)
+    # per-stage wall/candidate seconds (stage b/c profile, SURVEY §5
+    # tracing; per-phase splits live in each StageResult.phase_times)
+    timings: Dict[str, float] = field(default_factory=dict)
+
+    def contigs(self, stage: str) -> Tuple[List[int], List[str]]:
+        res = getattr(self, f"stage_{stage}" if stage in "abc" else stage)
+        store = res.store if stage != "a" else self.combined_store
+        from ..core.reads import decode_seq
+
+        ids, seqs = [], []
+        for i in range(len(store)):
+            ids.append(int(store.ids[i]))
+            seqs.append(decode_seq(store.unit_codes(store.unit1[i])))
+        return ids, seqs
+
+
+def _py2_randint_below(rng_state: random.Random, n: int) -> int:
+    """Python-2 randint(0, n-1): int(random() * n) (scripts/
+    random_split_fastq.py:33-40 used py2 randrange semantics)."""
+    return int(rng_state.random() * n)
+
+
+def split_into_patches(store: ReadStore, split_num: int, revcomp: bool):
+    """Random patch split (seed 0). Returns per patch a ReadStore with
+    LOCAL ids (singles 0.., paired continuing) plus a local->global id map.
+
+    Global ids are assigned by position: singles file order first, then
+    pairs — matching combine_contigs' line-number convention
+    (scripts/combine_contigs.py:93-110).
+    """
+    rng = random.Random()
+    rng.seed(0)
+    ns = store.readcount_single
+    npair = len(store) - ns
+    single_patch = [_py2_randint_below(rng, split_num) for _ in range(ns)]
+    rng2 = random.Random()
+    rng2.seed(0)
+    pair_patch = [_py2_randint_below(rng2, split_num) for _ in range(npair)]
+
+    patches = []
+    for p in range(split_num):
+        pstore = ReadStore()
+        id_map: Dict[int, int] = {}
+        local = 0
+        for i in range(ns):
+            if single_patch[i] != p:
+                continue
+            u1, _ = store.units_of(i)
+            pstore.add_single_codes(local, store.unit_codes(u1), store.unit_quals(u1))
+            id_map[local] = i
+            local += 1
+        pstore.readcount_single = local
+        for j in range(npair):
+            if pair_patch[j] != p:
+                continue
+            i = ns + j
+            u1, u2 = store.units_of(i)
+            c2, q2 = store.unit_codes(u2), store.unit_quals(u2)
+            if revcomp:
+                c2, q2 = revcomp_codes(c2), q2[::-1]
+            pstore.add_paired_codes(local, store.unit_codes(u1), store.unit_quals(u1), c2, q2)
+            id_map[local] = i
+            local += 1
+        patches.append((pstore, id_map))
+    return patches
+
+
+def denovo_candidates(store: ReadStore, min_overlap_len: int, sfo_mm: int, k: int = 20):
+    """Per-patch candidate overlaps: concatenated s+p1+p2 sequences through
+    the k-mer engine, converted by the SFO->overlaps path
+    (savage.py:643-677: sfo_len halved when paired reads are present)."""
+    ns = store.readcount_single
+    npair = len(store) - ns
+    seqs = [store.unit_codes(store.unit1[i]) for i in range(ns)]
+    seqs += [store.unit_codes(store.unit1[ns + i]) for i in range(npair)]
+    seqs += [store.unit_codes(store.unit2[ns + i]) for i in range(npair)]
+    sfo_len = int(round(min_overlap_len / 2)) if npair > 0 else min_overlap_len
+    sfo = find_overlap_candidates(seqs, min_overlap_len=sfo_len, k=k,
+                                  error_rate=1.0 / sfo_mm)
+    return sfo_to_overlaps(sfo, num_singles=ns, num_pairs=npair)
+
+
+def ref_guided_candidates(store: ReadStore, ref_index, min_overlap_len: int):
+    """Reference-guided overlap induction: align reads with the built-in
+    seed aligner (or externally supplied SAM), induce overlaps through
+    reference coordinates (savage.py preprocessing_ref:679-699; halved
+    min length when paired reads are present)."""
+    from ..io.sam import sam_to_overlaps
+    from ..io.overlaps import parse_overlap_lines
+    from ..ops.align import align_store
+
+    has_paired = len(store) > store.readcount_single
+    mol = int(round(min_overlap_len / 2)) if has_paired else min_overlap_len
+    singles, paired = align_store(store, ref_index)
+    lines = sam_to_overlaps(ref_index.lengths(), singles, paired, mol)
+    return parse_overlap_lines(lines)
+
+
+def contig_candidates(store: ReadStore, min_overlap_len: int, sfo_mm: float, k: int = 20):
+    """Contig-overlap candidates for stages b/c (savage.py run_sfo)."""
+    seqs = [store.unit_codes(store.unit1[i]) for i in range(len(store))]
+    sfo = find_overlap_candidates(seqs, min_overlap_len=min_overlap_len, k=k,
+                                  error_rate=1.0 / sfo_mm)
+    return sfo_to_overlaps(sfo, num_singles=len(seqs), num_pairs=0)
+
+
+def combine_patch_contigs(
+    patch_results: List[StageResult],
+    patch_id_maps: List[Dict[int, int]],
+) -> Tuple[ReadStore, SubreadDict]:
+    """paired-to-single combination of per-patch stage-a contigs with
+    subread re-keying to global original ids (scripts/combine_contigs.py)."""
+    combined = ReadStore()
+    subdict: SubreadDict = {}
+    next_id = 0
+
+    def rekey(originals: Dict[int, OriginalIndex], id_map: Dict[int, int]):
+        return {id_map[oid]: oi for oid, oi in originals.items()}
+
+    for res, id_map in zip(patch_results, patch_id_maps):
+        store = res.store
+        ns = store.readcount_single
+        npair = len(store) - ns
+        # single-end contigs first
+        base = next_id
+        for i in range(ns):
+            u1, _ = store.units_of(i)
+            combined.add_single_codes(next_id, store.unit_codes(u1), store.unit_quals(u1))
+            subdict[next_id] = rekey(res.subreads[int(store.ids[i])], id_map)
+            next_id += 1
+        # paired contigs split into two single-end contigs: all /1 parts,
+        # then all /2 parts (combine_contigs cat order)
+        for j in range(npair):
+            i = ns + j
+            u1, _ = store.units_of(i)
+            combined.add_single_codes(next_id, store.unit_codes(u1), store.unit_quals(u1))
+            orig = res.subreads[int(store.ids[i])]
+            subdict[next_id] = {
+                id_map[oid]: OriginalIndex(index1=oi.index1, is_paired=False,
+                                           forward=oi.forward, len1=oi.len1)
+                for oid, oi in orig.items()
+            }
+            next_id += 1
+        for j in range(npair):
+            i = ns + j
+            _, u2 = store.units_of(i)
+            combined.add_single_codes(next_id, store.unit_codes(u2), store.unit_quals(u2))
+            orig = res.subreads[int(store.ids[i])]
+            subdict[next_id] = {
+                id_map[oid]: OriginalIndex(index1=oi.index2, is_paired=False,
+                                           forward=oi.forward, len1=oi.len2)
+                for oid, oi in orig.items()
+            }
+            next_id += 1
+    combined.readcount_single = next_id
+    return combined, subdict
 
 
 def run_savage(
@@ -85,14 +292,14 @@ def run_savage(
 
     def ckpt_save(name: str, cstore: ReadStore, sub: Optional[SubreadDict]):
         if ckpt_root:
-            from haploconduct_tpu.utils.checkpoint import save_state
+            from ..utils.checkpoint import save_state
 
             save_state(ckpt_dir(name), cstore, sub)
             with open(os.path.join(ckpt_dir(name), "fingerprint.txt"), "w") as f:
                 f.write(fingerprint + "\n")
 
     def ckpt_load(name: str):
-        from haploconduct_tpu.utils.checkpoint import load_state
+        from ..utils.checkpoint import load_state
 
         cstore, sub, _ = load_state(ckpt_dir(name))
         return cstore, sub
@@ -107,7 +314,7 @@ def run_savage(
         id_maps: List[Dict[int, int]] = [id_map for _, id_map in patches]
         ref_index = None
         if cfg.reference:
-            from haploconduct_tpu.ops.align import ReferenceIndex
+            from ..ops.align import ReferenceIndex
 
             ref_index = ReferenceIndex.from_fasta(cfg.reference)
         # multi-process: patches round-robined over ranks; contig sets
@@ -292,3 +499,16 @@ def _freq_filter(res: StageResult, read_store: ReadStore, fragment_len: float,
             new_id += 1
     filtered.readcount_single = len(filtered.ids)
     return replace(res, store=filtered, subreads=sub)
+
+
+def _original_readcount(subreads: SubreadDict) -> int:
+    mx = 0
+    for originals in subreads.values():
+        for oid in originals:
+            mx = max(mx, int(oid))
+    return mx + 1
+
+
+def _freqs(store: ReadStore, subreads: SubreadDict, min_len: int) -> FreqResult:
+    lengths = {int(store.ids[i]): store.read_len(i) for i in range(len(store))}
+    return estimate_frequencies(lengths, subreads or {}, min_len=min_len)

@@ -7,10 +7,11 @@ import numpy as np
 import pytest
 import torch
 
-from haploconduct_tpu.assemble.stages import StageResult
-from haploconduct_tpu.core.reads import ReadStore, encode_seq, revcomp_str
+from haploconduct_tpu.core.reads import encode_seq, revcomp_str
 from haploconduct_tpu.ops.abundance import PseudoIndex, _em_device, _em_numpy
 from haploconduct_tpu.ops.abundance import estimate_abundance as ref_estimate
+from haploconduct_torch.assemble.stages import StageResult
+from haploconduct_torch.core.reads import ReadStore
 from haploconduct_torch.ops.abundance import _em_torch, estimate_abundance
 from haploconduct_torch.utils.log import PhaseTimer
 from haploconduct_torch.workflows.savage import _freq_filter
@@ -82,7 +83,7 @@ def test_estimate_abundance_matches_reference(backend):
 
 def test_freq_filter_drops_zero_tpm_contig_with_torch_em():
     """Mirror of tests/test_abundance.py:test_savage_freq_filter_drops_zero_tpm_contig
-    through the twin's filter with the torch EM."""
+    through the port's filter with the torch EM, on the port's own store."""
     rng = np.random.default_rng(6)
     a = _random_seq(rng, 400)
     ghost = _random_seq(rng, 400)

@@ -15,7 +15,7 @@ from haploconduct_torch.ops import kmer_device
 from haploconduct_torch.ops.kmer_device import find_overlap_candidates_device
 from haploconduct_torch.workflows.polyte import single_end_candidates
 
-from torch_helpers import make_store
+from torch_helpers import make_store, port_store
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -123,8 +123,8 @@ def test_single_end_candidates_device_matches_host():
     the host engine's verified overlaps; the join's call is counted."""
     rng = np.random.default_rng(9)
     genome = random_genome(rng, 4000)
-    store = make_store(*simulate_reads([genome], coverage=6, read_len=400,
-                                       rng=rng, error_rate=0.0))
+    store = port_store(make_store(*simulate_reads([genome], coverage=6, read_len=400,
+                                                  rng=rng, error_rate=0.0)))
     before = kmer_device.JOIN_CALLS.get("cpu", 0)
     host = single_end_candidates(store, 50, 0.0, engine="host")
     assert kmer_device.JOIN_CALLS.get("cpu", 0) == before

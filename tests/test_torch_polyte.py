@@ -11,7 +11,9 @@ import pytest
 from haploconduct_tpu.cli import main as ref_main
 from haploconduct_tpu.utils.simulate import (
     mutate_sequence, random_genome, simulate_paired_reads, simulate_reads)
+from haploconduct_tpu.workflows.polyte import PolyteConfig as RefPolyteConfig
 from haploconduct_tpu.workflows.polyte import run_polyte as ref_run_polyte
+from haploconduct_tpu.workflows.savage import SavageConfig as RefSavageConfig
 from haploconduct_tpu.workflows.savage import run_savage as ref_run_savage
 from haploconduct_torch.cli import main
 from haploconduct_torch.ops import kmer_device
@@ -19,7 +21,7 @@ from haploconduct_torch.ops.verify import BACKEND_COUNTS
 from haploconduct_torch.workflows.polyte import PolyteConfig, run_polyte
 from haploconduct_torch.workflows.savage import SavageConfig, run_savage
 
-from torch_helpers import make_store
+from torch_helpers import make_store, port_store
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -56,7 +58,7 @@ def contigs(store):
 @pytest.fixture(scope="module")
 def polyte_reference():
     store = make_store(*diploid_reads())
-    return store, {dip: ref_run_polyte(store, PolyteConfig(
+    return store, {dip: ref_run_polyte(store, RefPolyteConfig(
         backend="numpy", candidates="host", diploid=dip, **POLYTE_KW))
         for dip in (False, True)}
 
@@ -68,8 +70,8 @@ def test_run_polyte_matches_reference(polyte_reference, diploid, candidates):
     ref = refs[diploid]
     calls = kmer_device.JOIN_CALLS.get("cpu", 0)
     tasks = BACKEND_COUNTS["torch"]
-    got = run_polyte(store, PolyteConfig(backend="torch", candidates=candidates,
-                                         diploid=diploid, **POLYTE_KW))
+    got = run_polyte(port_store(store), PolyteConfig(
+        backend="torch", candidates=candidates, diploid=diploid, **POLYTE_KW))
     assert BACKEND_COUNTS["torch"] > tasks
     joined = kmer_device.JOIN_CALLS.get("cpu", 0) - calls
     assert (joined > 0) == (candidates == "device")
@@ -108,10 +110,10 @@ def test_reference_guided_savage_matches_reference(tmp_path, paired):
     io/overlaps.py:validate_overlaps, so no task position is negative and
     the torch scorer accepts every task."""
     store, ref_path = savage_ref_inputs(tmp_path, paired)
-    ref = ref_run_savage(store, SavageConfig(split_num=1, backend="numpy",
-                                             reference=ref_path))
-    got = run_savage(store, SavageConfig(split_num=1, backend="torch",
-                                         reference=ref_path))
+    ref = ref_run_savage(store, RefSavageConfig(split_num=1, backend="numpy",
+                                                reference=ref_path))
+    got = run_savage(port_store(store), SavageConfig(split_num=1, backend="torch",
+                                                     reference=ref_path))
     assert len(ref.contigs("a")[0]) > 0
     for stage in "abc":
         assert got.contigs(stage) == ref.contigs(stage), stage
@@ -131,8 +133,9 @@ def test_freq_est_abundance_matches_reference():
     contig_store = make_store([a, b, ghost], ["I" * len(s) for s in (a, b, ghost)])
     want = ref_estimate(contig_store, reads, fragment_len=80.0, min_len=400,
                         backend="numpy")
-    got = estimate_frequencies_abundance(contig_store, reads, fragment_len=80.0,
-                                         min_len=400, backend="torch")
+    got = estimate_frequencies_abundance(port_store(contig_store), port_store(reads),
+                                         fragment_len=80.0, min_len=400,
+                                         backend="torch")
     assert got.contig_ids == want.contig_ids == [0, 1]
     assert got.lengths == want.lengths
     assert got.total_subread_count == want.total_subread_count > 0
@@ -159,7 +162,8 @@ def test_cli_polyte_matches_reference_cli(tmp_path):
             "--stddev", "15", "-m", "60", "-m_EC", "77", "--diploid"]
     assert ref_main(args + ["-o", str(tmp_path / "ref"), "--backend", "numpy",
                             "--candidates", "host"]) == 0
-    assert main(args + ["-o", str(tmp_path / "torch")]) == 0  # auto, auto
+    # candidates auto: the torch join on a card, the host engine here
+    assert main(args + ["-o", str(tmp_path / "torch"), "--backend", "torch"]) == 0
     assert "contigs_diploid.fasta" in os.listdir(tmp_path / "ref")
     assert_same_outputs(tmp_path / "ref", tmp_path / "torch")
 
@@ -177,7 +181,7 @@ def test_cli_polyte_split_matches_reference_cli(tmp_path):
             "--insert_size", "150", "--stddev", "15", "-m", "60",
             "--split_size", "3000", "--split_overlap", "300"]
     assert ref_main(args + ["-o", str(tmp_path / "out_ref"), "--backend", "numpy"]) == 0
-    assert main(args + ["-o", str(tmp_path / "out_torch")]) == 0
+    assert main(args + ["-o", str(tmp_path / "out_torch"), "--backend", "torch"]) == 0
     assert_same_outputs(tmp_path / "out_ref", tmp_path / "out_torch")
 
 

@@ -16,11 +16,15 @@ from haploconduct_tpu.core.reads import ReadStore
 from haploconduct_tpu.utils.simulate import (
     mutate_sequence, random_genome, simulate_reads)
 from haploconduct_tpu.workflows.polyte_split import \
+    PolyteSplitConfig as RefPolyteSplitConfig
+from haploconduct_tpu.workflows.polyte_split import \
     run_polyte_split as ref_run_polyte_split
 from haploconduct_torch.ops.verify import BACKEND_COUNTS
 from haploconduct_torch.workflows import polyte_split
 from haploconduct_torch.workflows.polyte_split import (PolyteSplitConfig,
                                                        run_polyte_split)
+
+from torch_helpers import port_store
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -72,8 +76,9 @@ def final_contigs(res):
 def split_case(tmp_path_factory):
     ref_path = str(tmp_path_factory.mktemp("split") / "ref.fasta")
     store = split_inputs(ref_path)
-    ref = ref_run_polyte_split(store, PolyteSplitConfig(**split_kw(ref_path, "numpy")))
+    ref = ref_run_polyte_split(store, RefPolyteSplitConfig(**split_kw(ref_path, "numpy")))
     tasks = BACKEND_COUNTS["torch"]
+    store = port_store(store)
     got = run_polyte_split(store, PolyteSplitConfig(**split_kw(ref_path, "torch")))
     assert BACKEND_COUNTS["torch"] > tasks
     return store, ref_path, ref, got
@@ -123,7 +128,7 @@ def test_region_failures_are_counted_and_device_errors_raised(split_case, monkey
     assert all("KeyError" in err for _, err in res.failed_regions)
     assert res.final is None and len(res.combined_store) == 0
     monkeypatch.setattr(polyte_split, "run_polyte",
-                        failing(RuntimeError("score_segments kernel launch failed")))
+                        failing(RuntimeError("score_tasks kernel launch failed")))
     with pytest.raises(RuntimeError, match="kernel launch failed"):
         run_polyte_split(store, cfg)
 
@@ -152,10 +157,11 @@ JAX_FREE = textwrap.dedent("""
     sys.modules["jax"] = None  # any import of jax now raises
     sys.path.insert(0, %(tests)r)
     from test_torch_polyte_split import final_contigs, split_inputs, split_kw
+    from torch_helpers import port_store
     from haploconduct_torch.workflows.polyte_split import (PolyteSplitConfig,
                                                            run_polyte_split)
     ref_path = sys.argv[1]
-    res = run_polyte_split(split_inputs(ref_path),
+    res = run_polyte_split(port_store(split_inputs(ref_path)),
                            PolyteSplitConfig(**split_kw(ref_path, "torch")))
     loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
     assert loaded == ["jax"] and sys.modules["jax"] is None, loaded
@@ -182,11 +188,12 @@ GLOO_WORKER = textwrap.dedent("""
     sys.modules["jax"] = None
     sys.path.insert(0, %(tests)r)
     from test_torch_polyte_split import final_contigs, split_inputs, split_kw
+    from torch_helpers import port_store
     from haploconduct_torch.parallel import distributed
     from haploconduct_torch.workflows.polyte_split import (PolyteSplitConfig,
                                                            run_polyte_split)
     ref_path = sys.argv[2]
-    res = run_polyte_split(split_inputs(ref_path),
+    res = run_polyte_split(port_store(split_inputs(ref_path)),
                            PolyteSplitConfig(**split_kw(ref_path, "torch")))
     assert distributed.process_count() == 2
     assert res.failed_regions == []

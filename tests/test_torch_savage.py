@@ -10,17 +10,19 @@ import textwrap
 
 import numpy as np
 
-from haploconduct_tpu.assemble.stages import StageParams
+from haploconduct_tpu.assemble.stages import StageParams as RefStageParams
 from haploconduct_tpu.assemble.stages import run_stage as ref_run_stage
 from haploconduct_tpu.cli import main as ref_main
+from haploconduct_tpu.workflows.savage import SavageConfig as RefSavageConfig
 from haploconduct_tpu.workflows.savage import run_savage as ref_run_savage
-from haploconduct_torch.assemble.stages import run_stage
+from haploconduct_torch.assemble.stages import StageParams, run_stage
 from haploconduct_torch.cli import main
 from haploconduct_torch.ops.verify import BACKEND_COUNTS
 from haploconduct_torch.parallel import distributed
 from haploconduct_torch.workflows.savage import SavageConfig, run_savage
 
-from torch_helpers import dryrun_overlaps, dryrun_store, make_store, multi_strain_reads
+from torch_helpers import (dryrun_overlaps, dryrun_store, make_store,
+                           multi_strain_reads, port_store)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -34,9 +36,9 @@ def test_stage_a_dryrun_matches_reference():
     ov = dryrun_overlaps(store)
     kw = dict(stage="a", min_overlap_len=80, edge_threshold=0.97,
               original_readcount=len(store))
-    ref = ref_run_stage(StageParams(backend="numpy", **kw), store, ov)
+    ref = ref_run_stage(RefStageParams(backend="numpy", **kw), store, ov)
     before = BACKEND_COUNTS["torch"]
-    got = run_stage(StageParams(backend="torch", **kw), store, ov)
+    got = run_stage(StageParams(backend="torch", **kw), port_store(store), ov)
     assert BACKEND_COUNTS["torch"] > before
     assert len(got.store) > 0 and _seqs(got.store) == _seqs(ref.store)
     assert got.iterations == ref.iterations
@@ -46,8 +48,8 @@ def test_stage_a_dryrun_matches_reference():
 
 def test_run_savage_abc_matches_reference():
     store = make_store(*multi_strain_reads())
-    ref = ref_run_savage(store, SavageConfig(split_num=2, backend="numpy"))
-    got = run_savage(store, SavageConfig(split_num=2, backend="torch"))
+    ref = ref_run_savage(store, RefSavageConfig(split_num=2, backend="numpy"))
+    got = run_savage(port_store(store), SavageConfig(split_num=2, backend="torch"))
     for stage in "abc":
         assert got.contigs(stage) == ref.contigs(stage), stage
     assert {k: v.table() for k, v in got.frequencies.items()} == \
@@ -58,7 +60,7 @@ def test_savage_checkpoint_resume(tmp_path):
     """Mirror of tests/test_workflows.py:test_savage_checkpoint_resume."""
     import dataclasses
 
-    store = make_store(*multi_strain_reads())
+    store = port_store(make_store(*multi_strain_reads()))
     cfg = SavageConfig(split_num=1, backend="torch", output_dir=str(tmp_path),
                        stage_c=False)
     res1 = run_savage(store, cfg)
@@ -70,17 +72,17 @@ def test_savage_checkpoint_resume(tmp_path):
 
 def test_freq_filter_reids_surviving_contigs():
     """Mirror of tests/test_workflows.py:test_freq_filter_reids_surviving_contigs
-    through the twin's filter (torch EM) and a twin stage-c run."""
-    from haploconduct_tpu.assemble.stages import StageResult
+    through the port's filter (torch EM) and a stage-c run of the port."""
     from haploconduct_tpu.utils.simulate import random_genome, simulate_reads
+    from haploconduct_torch.assemble.stages import StageResult
     from haploconduct_torch.workflows.savage import _freq_filter, contig_candidates
 
     rng = np.random.default_rng(21)
     g = random_genome(rng, 1200)
-    reads = make_store(*simulate_reads([g], coverage=8, read_len=120, rng=rng,
-                                       error_rate=0.0))
-    contigs = make_store([g[:700], random_genome(rng, 600), g[500:]],
-                         ["I" * 700, "I" * 600, "I" * 700])
+    reads = port_store(make_store(*simulate_reads([g], coverage=8, read_len=120,
+                                                  rng=rng, error_rate=0.0)))
+    contigs = port_store(make_store([g[:700], random_genome(rng, 600), g[500:]],
+                                    ["I" * 700, "I" * 600, "I" * 700]))
     res = StageResult(store=contigs, subreads={0: {}, 1: {}, 2: {"x": None}},
                       overlap_lines=[], iterations=1)
     out = _freq_filter(res, reads, 120.0, "torch")
@@ -98,7 +100,7 @@ def test_cli_matches_reference_cli(tmp_path):
     fq.write_text("".join(f"@r{i}\n{s}\n+\n{q}\n" for i, (s, q) in enumerate(zip(seqs, quals))))
     args = ["savage", "-s", str(fq), "--split", "2"]
     assert ref_main(args + ["-o", str(tmp_path / "ref"), "--backend", "numpy"]) == 0
-    assert main(args + ["-o", str(tmp_path / "torch")]) == 0  # backend auto
+    assert main(args + ["-o", str(tmp_path / "torch"), "--backend", "torch"]) == 0
     names = sorted(f for f in os.listdir(tmp_path / "ref") if f.endswith((".fasta", ".txt")))
     assert "contigs_stage_c.fasta" in names
     for name in names:
@@ -119,8 +121,24 @@ def test_cli_usage_and_unported_modes(capsys):
     assert "polyte-split" in capsys.readouterr().out
 
 
+def test_cli_auto_backend_needs_a_card(tmp_path, monkeypatch):
+    """The CLI's default backend, auto, is the kernel on the card: without
+    a card the run stops with an error instead of scoring on the CPU."""
+    import pytest
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    monkeypatch.delenv("HC_BACKEND", raising=False)
+    seqs, quals = multi_strain_reads(seed=6)
+    fq = tmp_path / "reads.fastq"
+    fq.write_text("".join(f"@r{i}\n{s}\n+\n{q}\n" for i, (s, q) in enumerate(zip(seqs, quals))))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["savage", "-s", str(fq), "--split", "1", "-o", str(tmp_path / "o")])
+
+
 def test_stage_profile_dir_writes_chrome_trace(tmp_path):
-    store = dryrun_store()
+    store = port_store(dryrun_store())
     p = StageParams(stage="a", min_overlap_len=80, edge_threshold=0.97,
                     original_readcount=len(store), backend="torch",
                     profile_dir=str(tmp_path))
@@ -134,12 +152,12 @@ JAX_FREE = textwrap.dedent("""
     import sys
     sys.modules["jax"] = None  # any import of jax now raises
     sys.path.insert(0, %(tests)r)
-    from torch_helpers import dryrun_overlaps, dryrun_store
+    from torch_helpers import dryrun_overlaps, dryrun_store, port_store
     from haploconduct_torch.assemble.stages import StageParams, run_stage
     store = dryrun_store()
     res = run_stage(StageParams(stage="a", min_overlap_len=80, edge_threshold=0.97,
                                 original_readcount=len(store), backend="torch"),
-                    store, dryrun_overlaps(store))
+                    port_store(store), dryrun_overlaps(store))
     assert len(res.store) > 0
     loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
     assert loaded == ["jax"] and sys.modules["jax"] is None, loaded
@@ -169,10 +187,10 @@ GLOO_WORKER = textwrap.dedent("""
     import os, sys
     sys.modules["jax"] = None
     sys.path.insert(0, %(tests)r)
-    from torch_helpers import make_store, multi_strain_reads
+    from torch_helpers import make_store, multi_strain_reads, port_store
     from haploconduct_torch.parallel import distributed
     from haploconduct_torch.workflows.savage import SavageConfig, run_savage
-    store = make_store(*multi_strain_reads())
+    store = port_store(make_store(*multi_strain_reads()))
     res = run_savage(store, SavageConfig(split_num=2, backend="torch",
                                          stage_b=False, stage_c=False))
     assert distributed.process_count() == 2
@@ -211,7 +229,7 @@ def test_two_process_gloo_savage_matches_single(tmp_path):
         errs.append(err.decode()[-2000:])
     assert all(p.returncode == 0 for p in procs), "\n".join(errs)
 
-    single = run_savage(make_store(*multi_strain_reads()),
+    single = run_savage(port_store(make_store(*multi_strain_reads())),
                         SavageConfig(split_num=2, backend="torch",
                                      stage_b=False, stage_c=False))
     ids, seqs = single.contigs("a")

@@ -14,9 +14,20 @@ from haploconduct_tpu.ops.verify import combine_scores, plan_tasks
 from haploconduct_tpu.ops.verify import verify_overlaps as ref_verify
 from haploconduct_tpu.utils.config import Settings
 from haploconduct_torch.ops import autoback
-from haploconduct_torch.ops.verify import BACKEND_COUNTS, RECHECK_STATS, verify_overlaps
+from haploconduct_torch.ops.verify import BACKEND_COUNTS, RECHECK_STATS
+from haploconduct_torch.ops.verify import verify_overlaps as port_verify
+from haploconduct_torch.utils.config import Settings as PortSettings
 
 from test_score import build_random_store, random_overlaps
+from torch_helpers import port_store
+
+
+def verify_overlaps(store, packed, ov, s):
+    """The port's verify_overlaps on its own objects, built from the same
+    reads and settings as the reference's `store` and `s` (the packed
+    matrices are the port's pack of the same reads)."""
+    pstore = port_store(store)
+    return port_verify(pstore, pstore.pack(), ov, PortSettings(**vars(s)))
 
 
 def _assert_same_decisions(r_ref, r_got):
@@ -140,14 +151,23 @@ def test_unattainable_threshold_skips_recheck():
 
 
 def test_auto_backend_resolution(monkeypatch):
+    """auto is the kernel on the card; without a card it raises, and the
+    host engines run only when named (HC_BACKEND or the backend itself)."""
     monkeypatch.delenv("HC_BACKEND", raising=False)
-    expected = "torch" if torch.cuda.is_available() else "native"
-    assert autoback.resolve_backend() == expected
+    if torch.cuda.is_available():
+        assert autoback.resolve_backend() == "torch"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            autoback.resolve_backend()
     for env in autoback.BACKENDS:
         monkeypatch.setenv("HC_BACKEND", env)
         assert autoback.resolve_backend() == env
     monkeypatch.setenv("HC_BACKEND", "jax")  # not a backend of the port
-    assert autoback.resolve_backend() == expected
+    if torch.cuda.is_available():
+        assert autoback.resolve_backend() == "torch"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            autoback.resolve_backend()
 
 
 def test_auto_backend_verify_and_unknown_backend(monkeypatch):

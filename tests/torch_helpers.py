@@ -1,4 +1,9 @@
-"""Shared inputs and fixtures for the haploconduct_torch tests."""
+"""Shared inputs and fixtures for the haploconduct_torch tests.
+
+The two packages share no classes: a test builds the reference's objects
+and the port's from the same numpy inputs (`port_store` carries a
+reference ReadStore across as plain arrays) and compares arrays, strings
+and contigs, never objects."""
 
 import numpy as np
 import pytest
@@ -7,6 +12,7 @@ import torch
 from haploconduct_tpu.core.reads import ReadStore
 from haploconduct_tpu.utils.simulate import (
     mutate_sequence, random_genome, simulate_reads)
+from haploconduct_torch.core.arrays import store_from_arrays
 
 
 @pytest.fixture
@@ -36,6 +42,21 @@ def random_tasks(rng, lens, B, slack, row_a_lo=0):
     row_b = rng.integers(0, R, B).astype(np.int64)
     pos = (rng.random(B) * np.maximum(1, lens[row_a] - slack)).astype(np.int64)
     return row_a, row_b, pos
+
+
+def store_arrays(store) -> dict:
+    """The plain arrays of a ReadStore (either package's): unit codes and
+    quals, ids, unit1/unit2 and the single-end read count."""
+    return dict(
+        unit_codes=[store.unit_codes(u) for u in range(store.n_units)],
+        unit_quals=[store.unit_quals(u) for u in range(store.n_units)],
+        ids=list(store.ids), unit1=list(store.unit1), unit2=list(store.unit2),
+        readcount_single=store.readcount_single)
+
+
+def port_store(store):
+    """The port's ReadStore holding the same reads as `store`."""
+    return store_from_arrays(**store_arrays(store))
 
 
 def subtask_columns(lens, row_a, row_b, pos):

@@ -1,0 +1,292 @@
+#!/usr/bin/env python3
+"""A/B timings of haploconduct_torch on one CUDA card, in one process or
+one call, the variants in turns (A, B, B, A).
+
+    python3 torch_ab.py kernel [--old-src SRC] [--reps 10]
+
+The scoring kernel (csrc/score_tasks.cu) with 4 and with 32 lanes a task
+at chip_smoke.py's five kernel shapes, each against chip_smoke.py's bound.
+With --old-src, also an earlier revision of the kernel built from SRC
+(taken from git into a gitignored directory, for example
+`git show <commit>:haploconduct_torch/csrc/score_segments.cu >
+build/ab/score_segments.cu`), on the same tasks. SRC exports either
+`hc_score_segments` (512-lane subtasks cut on the host and their sums
+added on the host) or `hc_score_tasks` (this tree's C interface). One
+JSON line per shape: the card's name and power limit, CUDA-event ms per
+launch (median of --reps after a warm-up), and the wall ms of the whole
+scoring call (ops/score.py:score_tasks_torch; for a subtask kernel, the
+host split, upload, kernel, download and f64 reduce it needed). Both
+revisions must give the same integer columns per task.
+
+    python3 torch_ab.py verify --trees A B [--pairs 3]
+
+SAVAGE a -> b -> c on chip_smoke.py's envelope patch, run by two
+checkouts of the repo (for example the parent unpacked with `git archive`
+into build/parent, and .) in turns, each run in a fresh process, plus the
+native host engine of the second checkout as a yardstick. One JSON line
+a run: the tree, the backend, the card, the wall seconds of run_savage,
+the verify-phase seconds of stages a, b and c and their sum, the seconds
+inside the torch backend's scoring calls (ops/verify.py:
+score_tasks_torch), the kernel's launches and the contig counts. All runs
+must give the same contigs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parent
+
+
+def card_name() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+# ---- kernel
+
+
+def load_lib(src: Path):
+    """(kind, entry point) of the kernel library built from src."""
+    from haploconduct_torch.ops import kernels
+
+    lib = ctypes.CDLL(str(kernels.build(src)))
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    if hasattr(lib, "hc_score_segments"):
+        fn = lib.hc_score_segments
+        fn.argtypes = [p, i64, p, p, p, p, i64, ctypes.c_float, p, p, p, p, p]
+        kind = "segments"
+    else:
+        fn = lib.hc_score_tasks
+        fn.argtypes = [p, i64, p, p, p, p, i64, ctypes.c_float, ctypes.c_int,
+                       ctypes.c_int, p, p, p, p, p, p]
+        kind = "tasks"
+    fn.restype = ctypes.c_int
+    return kind, fn
+
+
+def launch_tasks(fn, comb, cols, max_qual, group):
+    """One launch of a task kernel through its C interface, threshold 0."""
+    import torch
+
+    n = cols[1].shape[0]
+    sum_log = torch.empty(n, dtype=torch.float64, device=comb.device)
+    ints = torch.empty(3 * n + 1, dtype=torch.int32, device=comb.device)
+    outs = (sum_log, ints[:n], ints[n:2 * n], ints[2 * n:3 * n])
+    err = fn(comb.data_ptr(), comb.shape[1], *(c.data_ptr() for c in cols), n,
+             0.0, max_qual, group, ints[3 * n:].data_ptr(),
+             *(o.data_ptr() for o in outs), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"task kernel launch failed: CUDA error {err}")
+    return outs
+
+
+def launch_segments(fn, comb, cols):
+    """One launch of the subtask kernel, threshold 0."""
+    import torch
+
+    n = cols[0].shape[0]
+    out = (torch.empty(n, dtype=torch.float32, device=comb.device),
+           *(torch.empty(n, dtype=torch.int32, device=comb.device) for _ in range(3)))
+    err = fn(comb.data_ptr(), comb.shape[1], *(c.data_ptr() for c in cols), n, 0.0,
+             *(o.data_ptr() for o in out), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"subtask kernel launch failed: CUDA error {err}")
+    return out
+
+
+def segments_call(fn, codes, quals, lens, row_a, row_b, pos):
+    """The subtask kernel's scoring call: split on the host, the kernel,
+    the f64 reduce on the host."""
+    import torch
+    from haploconduct_torch.ops.score import (finish_task_scores, pack_for_device,
+                                              segment_tasks)
+
+    L = np.where(pos >= lens[row_a], 0, np.minimum(lens[row_a] - pos, lens[row_b]))
+    *cols, bounds = segment_tasks(row_a, row_b, pos, L)
+    comb = pack_for_device(codes, quals, "cuda")
+    sub = launch_segments(fn, comb, [torch.from_numpy(c).cuda() for c in cols])
+    sums = [np.add.reduceat(c.cpu().numpy().astype(np.float64 if j == 0 else np.int64),
+                            bounds) for j, c in enumerate(sub)]
+    return finish_task_scores(*sums, pos, lens[row_a], lens[row_b], 0)
+
+
+def wall_ms(fn) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def kernel_ab(args) -> int:
+    import torch
+
+    import chip_smoke
+    from haploconduct_torch.ops import kernels
+    from haploconduct_torch.ops.score import (pack_for_device, score_tasks_torch,
+                                              segment_tasks)
+
+    card = card_name()
+    new_fn = load_lib(kernels.SCORE_SRC)[1]
+    old_kind, old_fn = load_lib(args.old_src) if args.old_src else (None, None)
+    rng = np.random.default_rng(chip_smoke.SEED)
+    shapes = [("envelope_it1", 88_932, 150, 150, 10_500_000, 90, 0),
+              ("kb_contigs", 64, 6200, 4000, 4096, 2000, 0),
+              ("rows_over_2^16", (1 << 16) + 512, 64, 40, 4096, 34, (1 << 16) + 512 - 4096),
+              ("wide_9kb", 1600, 9000, 800, 1024, 100, 0),
+              ("polyte_region", 2640, 250, 250, 120_000, 127, 0)]
+    for name, R, W, lmin, B, slack, lo in shapes:
+        _, codes, quals, lens, row_a, row_b, pos = chip_smoke.kernel_case(
+            name, rng, R, W, lmin, B, slack, row_a_lo=lo)
+        L = np.where(pos >= lens[row_a], 0, np.minimum(lens[row_a] - pos, lens[row_b]))
+        comb = pack_for_device(codes, quals, "cuda")
+        cols = [torch.from_numpy(c.astype(np.int32)).cuda()
+                for c in (lens, row_a, row_b, pos)]
+        max_qual = int(quals.max())
+        variants = {f"new_g{g}": (lambda g=g: launch_tasks(new_fn, comb, cols, max_qual, g))
+                    for g in (4, 32)}
+        new = launch_tasks(new_fn, comb, cols, max_qual, kernels.default_group(comb.shape[1]))
+        subtasks = None
+        if old_kind == "segments":
+            *sub_np, bounds = segment_tasks(row_a, row_b, pos, L)
+            subtasks = len(sub_np[0])
+            sub_cols = [torch.from_numpy(c).cuda() for c in sub_np]
+            old = launch_segments(old_fn, comb, sub_cols)
+            old = [np.add.reduceat(c.cpu().numpy().astype(np.int64), bounds)
+                   for c in old[1:]]
+            variants["old"] = lambda: launch_segments(old_fn, comb, sub_cols)
+        elif old_kind == "tasks":
+            old = [c.cpu().numpy() for c in launch_tasks(
+                old_fn, comb, cols, max_qual, kernels.default_group(comb.shape[1]))[1:]]
+            for g in (4, 32):
+                variants[f"old_g{g}"] = (
+                    lambda g=g: launch_tasks(old_fn, comb, cols, max_qual, g))
+        if old_kind is not None:
+            for j, col in enumerate(old, 1):
+                if not np.array_equal(col, new[j].cpu().numpy()):
+                    raise AssertionError(f"{name}: old and new kernels differ in column {j}")
+
+        order = sorted(variants)
+        times = {k: [] for k in order}
+        for key in order + order[::-1]:
+            times[key].append(chip_smoke.cuda_ms(variants[key], args.reps))
+        host_args = (codes, quals, lens, row_a, row_b, pos)
+        calls = {"new": lambda: score_tasks_torch(*host_args, device="cuda")}
+        if old_kind == "segments":
+            calls["old"] = lambda: segments_call(old_fn, *host_args)
+        walls = {k: [] for k in calls}
+        for key in list(calls) + list(calls)[::-1]:
+            walls[key].append(wall_ms(calls[key]))
+        bound_ms, bound_by = chip_smoke.score_bound(lens, row_a, row_b, pos, L)
+        print(json.dumps({
+            "shape": name, "card": card, "tasks": B, "subtasks": subtasks,
+            "lanes": int(L.sum()), "bound_ms": bound_ms, "bound_by": bound_by,
+            "kernel_ms": {k: [round(t, 4) for t in v] for k, v in times.items()},
+            "kernel_ms_median": {k: statistics.median(v) for k, v in times.items()},
+            "call_wall_ms": {k: [round(t, 2) for t in v] for k, v in walls.items()},
+        }), flush=True)
+        del comb, cols, variants
+        torch.cuda.empty_cache()
+    return 0
+
+
+# ---- verify
+
+RUN = r"""
+import hashlib, json, sys, time
+sys.path.insert(0, ".")
+import torch
+import chip_smoke
+from haploconduct_torch.ops import kernels, verify
+from haploconduct_torch.workflows.savage import SavageConfig, run_savage
+
+backend, card = sys.argv[1], sys.argv[2]
+score_s = [0.0]
+scorer = verify.score_tasks_torch
+
+
+def timed(*args, **kwargs):
+    t = time.perf_counter()
+    out = scorer(*args, **kwargs)  # numpy results: the card is done
+    score_s[0] += time.perf_counter() - t
+    return out
+
+
+verify.score_tasks_torch = timed
+kernels.load()
+torch.zeros(1, device="cuda")
+store = chip_smoke.envelope_patch()
+t0 = time.perf_counter()
+res = run_savage(store, SavageConfig(split_num=1, backend=backend))
+wall = time.perf_counter() - t0
+by_stage = [r.phase_times.get("verify", 0.0)
+            for r in (res.stage_a, res.stage_b, res.stage_c)]
+launches = [getattr(kernels, n).launches for n in ("score_tasks_cuda", "score_segments_cuda")
+            if hasattr(kernels, n)][0]
+print(json.dumps({"backend": backend, "card": card, "wall_s": wall,
+                  "verify_s": sum(by_stage), "verify_s_by_stage": by_stage,
+                  "score_call_s": score_s[0], "launches": launches,
+                  "contigs": [len(res.contigs(s)[0]) for s in "abc"],
+                  "digest": hashlib.sha256("\n".join(res.contigs("c")[1]).encode()
+                                           ).hexdigest()[:16]}))
+"""
+
+
+def savage_run(tree: str, backend: str, card: str) -> dict:
+    proc = subprocess.run([sys.executable, "-c", RUN, backend, card], cwd=tree,
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{tree} {backend} failed:\n{proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["tree"] = tree
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def verify_ab(args) -> int:
+    card = card_name()
+    a, b = args.trees
+    runs = []
+    for i in range(args.pairs):
+        for tree in ((a, b) if i % 2 == 0 else (b, a)):
+            runs.append(savage_run(tree, "torch", card))
+    runs.append(savage_run(b, "native", card))
+    if len({(r["contigs"][2], r["digest"]) for r in runs}) != 1:
+        raise AssertionError("the runs gave different contigs")
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    k = sub.add_parser("kernel")
+    k.add_argument("--old-src", type=Path)
+    k.add_argument("--reps", type=int, default=10)
+    v = sub.add_parser("verify")
+    v.add_argument("--trees", nargs=2, required=True, metavar=("A", "B"))
+    v.add_argument("--pairs", type=int, default=3)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    return kernel_ab(args) if args.cmd == "kernel" else verify_ab(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())
