@@ -34,11 +34,20 @@ Phases (each prints a line; any failure exits non-zero):
      card, (c) native with the host join. (a) and (b) byte-identical, (c)
      equal to the JAX package's pinned result (435 contigs, 296,804 bp,
      longest 2,686, 12 regions), (a) through the kernel and the join on the
-     card, no task on a host backend, no region failed.
+     card, no task on a host backend, no region failed;
+  9. multi-device verification (parallel/mesh.py): (a) phase 2's
+     iteration-1 stream scored by sharded_score_tasks over two shards on
+     card 0, and over every visible card when there are several, against
+     one score_tasks_torch call: all four per-task columns bit-equal; (b)
+     phase 4's SAVAGE run with default_devices() naming card 0 twice, so
+     every verify call goes through the mesh: contigs byte-identical to
+     phase 4's, every task counted under "mesh", more launches than phase 4.
 
-The inputs of phases 6-8 are the repo's own simulator's (utils/simulate.py)
-draws, rebuilt here with numpy in the same order. Before the summary the
-script checks that no module of the JAX package and no jax was loaded.
+Phase 4 also prints the stage c contigs' genome fraction and mismatch rate
+against the four strains (workflows/evaluate.py); no check reads them. The
+inputs of phases 6-8 come from the port's copy of the repo's simulator
+(utils/simulate.py). Before the summary the script checks that no module
+of the JAX package and no jax was loaded.
 The second-to-last line is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card it exits 1.
 """
@@ -215,13 +224,9 @@ def dryrun_store():
     return store
 
 
-def envelope_patch(seed=SEED, genome_len=10_000, n_haps=4, divergence=0.03,
-                   coverage=667, read_len=150, error_rate=0.002):
-    """One SAVAGE envelope patch: n_haps strains, each `divergence` from a
-    random master genome, uniform single-end reads at constant phred 40."""
-    from haploconduct_torch.workflows.savage import ReadStore
-
-    rng = np.random.default_rng(seed)
+def envelope_strains(rng, genome_len=10_000, n_haps=4, divergence=0.03):
+    """The envelope patch's strains (code arrays): a random master genome
+    and n_haps - 1 strains, each `divergence` from it."""
     master = rng.integers(0, 4, genome_len).astype(np.int8)
     haps = [master]
     for _ in range(n_haps - 1):
@@ -229,6 +234,17 @@ def envelope_patch(seed=SEED, genome_len=10_000, n_haps=4, divergence=0.03,
         at = rng.choice(genome_len, int(round(genome_len * divergence)), replace=False)
         h[at] = (h[at] + rng.integers(1, 4, len(at))) % 4
         haps.append(h)
+    return haps
+
+
+def envelope_patch(seed=SEED, genome_len=10_000, n_haps=4, divergence=0.03,
+                   coverage=667, read_len=150, error_rate=0.002):
+    """One SAVAGE envelope patch: uniform single-end reads of the
+    envelope_strains at constant phred 40."""
+    from haploconduct_torch.workflows.savage import ReadStore
+
+    rng = np.random.default_rng(seed)
+    haps = envelope_strains(rng, genome_len, n_haps, divergence)
     per_hap = int(coverage / n_haps * genome_len / read_len)
     reads = []
     for h in haps:
@@ -246,35 +262,19 @@ def envelope_patch(seed=SEED, genome_len=10_000, n_haps=4, divergence=0.03,
     return store
 
 
-# ---- the repo's simulator (utils/simulate.py), error-free, as numpy draws
-# in the same order: the same seed gives the same genomes and reads
+def sim_store(haps, coverage, read_len, rng):
+    """A single-end store of the repo simulator's error-free reads of
+    `haps` (utils/simulate.py:simulate_reads; phred 40)."""
+    from haploconduct_torch.utils.simulate import simulate_reads
+    from haploconduct_torch.workflows.savage import ReadStore
 
-def sim_genome(rng, length):
-    return rng.integers(0, 4, length).astype(np.int8)
-
-
-def sim_mutate(rng, genome, sub_rate):
-    """mutate_sequence(genome, rng, sub_rate): substitutions only."""
-    out = genome.copy()
-    n = len(genome)
-    for pos in rng.choice(n, size=min(int(round(n * sub_rate)), n), replace=False):
-        out[pos] = (out[pos] + int(rng.integers(1, 4))) % 4
-    rng.choice(n, size=0, replace=False)  # deletions (none)
-    rng.choice(n, size=0, replace=False)  # insertions (none)
-    return out
-
-
-def sim_reads(rng, haps, coverage, read_len):
-    """simulate_reads(haps, coverage, read_len, rng, error_rate=0.0):
-    (n, read_len) codes."""
-    reads = []
-    for h in haps:
-        n = int(coverage * len(h) / read_len)
-        starts = rng.integers(0, max(len(h) - read_len, 1), n)
-        rng.random((n, read_len))  # the per-base error draws
-        reads.append(h[starts[:, None] + np.arange(read_len)])
-    reads = np.concatenate(reads)
-    return reads[rng.permutation(len(reads))]
+    seqs, quals = simulate_reads(haps, coverage=coverage, read_len=read_len,
+                                 rng=rng, error_rate=0.0)
+    store = ReadStore()
+    for i, (s, q) in enumerate(zip(seqs, quals)):
+        store.add_single(i, s, q)
+    store.readcount_single = len(seqs)
+    return store
 
 
 def codes_store(seqs):
@@ -288,17 +288,19 @@ def codes_store(seqs):
     return store
 
 
-def write_fasta(path, name, codes):
+def write_fasta(path, name, seq):
     with open(path, "w") as f:
-        f.write(f">{name}\n{''.join('ACGT'[c] for c in codes)}\n")
+        f.write(f">{name}\n{seq}\n")
 
 
 def polyte_envelope_reads(genome_len=120_000, hap_cov=15, read_len=250):
-    """tools/envelope_run.py:polyte_envelope's genome and reads."""
+    """tools/envelope_run.py:polyte_envelope's genome and read store."""
+    from haploconduct_torch.utils.simulate import mutate_sequence, random_genome
+
     rng = np.random.default_rng(1)
-    genome = sim_genome(rng, genome_len)
-    hap2 = sim_mutate(rng, genome, 0.005)
-    return genome, sim_reads(rng, [genome, hap2], hap_cov, read_len)
+    genome = random_genome(rng, genome_len)
+    hap2 = mutate_sequence(genome, rng, sub_rate=0.005)
+    return genome, sim_store([genome, hap2], hap_cov, read_len, rng)
 
 
 def contig_like_seqs(n=1000, genome_len=150_000, seed=SEED):
@@ -371,12 +373,13 @@ def phase_join(torch):
 
 def phase_polyte_small():
     """Phase 6: POLYTE diploid, torch + join on the card vs native + host join."""
+    from haploconduct_torch.utils.simulate import mutate_sequence, random_genome
     from haploconduct_torch.workflows.polyte import PolyteConfig, run_polyte
 
     rng = np.random.default_rng(42)
-    hap1 = sim_genome(rng, 3000)
-    hap2 = sim_mutate(rng, hap1, 0.01)
-    store = codes_store(sim_reads(rng, [hap1, hap2], 20, 150))
+    hap1 = random_genome(rng, 3000)
+    hap2 = mutate_sequence(hap1, rng, sub_rate=0.01)
+    store = sim_store([hap1, hap2], 20, 150, rng)
     kw = dict(hap_cov=20, insert_size=150, stddev=15, min_overlap_len=60,
               min_overlap_len_EC=77, diploid=True)
     got = run_polyte(store, PolyteConfig(backend="torch", candidates="auto", **kw))
@@ -391,11 +394,12 @@ def phase_polyte_small():
 
 def phase_savage_ref(workdir):
     """Phase 7: reference-guided SAVAGE stage a, torch vs native."""
+    from haploconduct_torch.utils.simulate import mutate_sequence, random_genome
     from haploconduct_torch.workflows.savage import SavageConfig, run_savage
 
     rng = np.random.default_rng(7)
-    hap = sim_genome(rng, 1500)
-    store = codes_store(sim_reads(rng, [hap, sim_mutate(rng, hap, 0.02)], 40, 120))
+    hap = random_genome(rng, 1500)
+    store = sim_store([hap, mutate_sequence(hap, rng, sub_rate=0.02)], 40, 120, rng)
     ref = os.path.join(workdir, "savage_ref.fasta")
     write_fasta(ref, "chr", hap)
     out = {b: run_savage(store, SavageConfig(split_num=1, backend=b, reference=ref,
@@ -415,8 +419,7 @@ def phase_polyte_split(torch, workdir):
     from haploconduct_torch.workflows.polyte_split import (PolyteSplitConfig,
                                                            run_polyte_split)
 
-    genome, reads = polyte_envelope_reads()
-    store = codes_store(reads)
+    genome, store = polyte_envelope_reads()
     ref = os.path.join(workdir, "envelope_ref.fasta")
     write_fasta(ref, "chr", genome)
     runs = {}
@@ -483,6 +486,86 @@ def contig_sets(res):
             if (res.combined_store if s == "a" else getattr(res, f"stage_{s}")) is not None}
 
 
+def phase_mesh_stream(torch, reps=3):
+    """Phase 9 (a): the iteration-1 stream scored by sharded_score_tasks
+    (parallel/mesh.py) over two shards on card 0, and over every visible
+    card when there are several, against one score_tasks_torch call."""
+    from haploconduct_torch.ops.score import score_tasks_torch
+    from haploconduct_torch.parallel import mesh
+
+    card0 = torch.device("cuda", 0)
+    _, *args = kernel_case("envelope_it1", np.random.default_rng(SEED),
+                           88_932, 150, 150, 10_500_000, 90)
+    calls = {"one call": lambda th: score_tasks_torch(*args, mismatch_thresh=th,
+                                                      device=card0),
+             "2 shards on card 0": lambda th: mesh.sharded_score_tasks(
+                 *args, mismatch_thresh=th, devices=[card0, card0])}
+    if torch.cuda.device_count() > 1:
+        cards = mesh.default_devices()
+        calls[f"{len(cards)} cards"] = lambda th: mesh.sharded_score_tasks(
+            *args, mismatch_thresh=th, devices=cards)
+    for th in (0.0, far_threshold()):
+        one = calls["one call"](th)
+        for name, call in calls.items():
+            got = call(th)
+            for col in ("sum_log", "counted", "mismatches", "rejected"):
+                if not np.array_equal(getattr(got, col), getattr(one, col)):
+                    raise AssertionError(f"mesh ({name}, threshold {th}): {col} "
+                                         "differs from one score_tasks_torch call")
+    seconds = {name: [] for name in calls}
+    for _ in range(reps):
+        for name, call in calls.items():
+            t0 = time.perf_counter()
+            call(0.0)
+            seconds[name].append(time.perf_counter() - t0)
+    log(f"[mesh_a] iteration-1 stream, {len(args[3])} tasks: every sharding "
+        f"bit-equal to one call on all four columns (thresholds 0 and "
+        f"{far_threshold():.4f}); call seconds (host clock, {reps} each): "
+        + "; ".join(f"{k} {', '.join(f'{v:.3f}' for v in vs)}"
+                    for k, vs in seconds.items()))
+
+
+def phase_mesh_savage(torch, patch, want, tasks, launches):
+    """Phase 9 (b): SAVAGE on the envelope patch with default_devices()
+    naming card 0 twice, so every verify call goes through the mesh.
+    `want`, `tasks` and `launches` are phase 4's torch contigs, tasks and
+    kernel launches."""
+    from haploconduct_torch.ops import kernels
+    from haploconduct_torch.ops.verify import BACKEND_COUNTS
+    from haploconduct_torch.parallel import mesh
+    from haploconduct_torch.workflows.savage import SavageConfig, run_savage
+
+    card0 = torch.device("cuda", 0)
+    saved = mesh.default_devices
+    mesh.default_devices = lambda: [card0, card0]
+    try:
+        for key in BACKEND_COUNTS:
+            BACKEND_COUNTS[key] = 0
+        kernels.score_tasks_cuda.launches = 0
+        t0 = time.perf_counter()
+        res = run_savage(patch, SavageConfig(split_num=1, backend="torch"))
+        wall = time.perf_counter() - t0
+        mesh_launches = kernels.score_tasks_cuda.launches
+        counts = dict(BACKEND_COUNTS)
+    finally:
+        mesh.default_devices = saved
+    verify_s = sum(r.phase_times.get("verify", 0.0)
+                   for r in (res.stage_a, res.stage_b, res.stage_c) if r is not None)
+    log(f"[mesh_b] SAVAGE a->b->c, default_devices() = [cuda:0, cuda:0]: "
+        f"wall={wall:.2f}s verify_phase={verify_s:.2f}s kernel launches="
+        f"{mesh_launches} (phase 4: {launches}) tasks={counts}")
+    if contig_sets(res) != want:
+        raise AssertionError("SAVAGE contigs through the mesh differ from phase 4's")
+    if counts["mesh"] != tasks or counts["torch"] or counts["numpy"] or counts["native"]:
+        raise AssertionError(f"the mesh run did not score all {tasks} tasks "
+                             f"through the mesh: {counts}")
+    if mesh_launches <= launches:
+        raise AssertionError("the mesh run launched the kernel no more often "
+                             "than phase 4")
+    log("[mesh] contigs byte-identical to phase 4, every task through the mesh")
+    return mesh_launches
+
+
 def main() -> int:
     import torch
 
@@ -530,8 +613,8 @@ def main() -> int:
 
     # phase 4: the main path at one envelope patch
     t0 = time.perf_counter()
-    store = envelope_patch()
-    log(f"[envelope] {len(store)} reads of 150 bp built in "
+    patch = envelope_patch()
+    log(f"[envelope] {len(patch)} reads of 150 bp built in "
         f"{time.perf_counter() - t0:.1f}s")
     runs = {}
     for backend in ("torch", "native"):
@@ -542,7 +625,7 @@ def main() -> int:
                 BACKEND_COUNTS[key] = 0
             kernels.score_tasks_cuda.launches = 0
         t0 = time.perf_counter()
-        res = run_savage(store, cfg)
+        res = run_savage(patch, cfg)
         wall = time.perf_counter() - t0
         if backend == "torch":
             launches = kernels.score_tasks_cuda.launches
@@ -571,6 +654,12 @@ def main() -> int:
     if set(runs["torch"]) != set("abc") or runs["torch"] != runs["native"]:
         raise AssertionError("SAVAGE contigs (torch) differ from the native engine's")
     log("[savage] stage a/b/c contigs byte-identical, torch vs native")
+    from haploconduct_torch.workflows.evaluate import evaluate_assembly
+
+    strains = ["".join("ACGT"[c] for c in h)
+               for h in envelope_strains(np.random.default_rng(SEED))]
+    log("[savage_eval] stage c against the 4 strains: "
+        + evaluate_assembly(runs["torch"]["c"][1], strains).summary())
 
     with tempfile.TemporaryDirectory() as workdir:
         t0 = time.perf_counter()
@@ -579,6 +668,9 @@ def main() -> int:
         phase_savage_ref(workdir)
         log(f"[phases 5-7] {time.perf_counter() - t0:.1f}s")
         split = phase_polyte_split(torch, workdir)
+    phase_mesh_stream(torch)
+    mesh_launches = phase_mesh_savage(torch, patch, runs["torch"], counts["torch"],
+                                      launches)
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("haploconduct_tpu", "jax", "jaxlib"))
@@ -592,8 +684,9 @@ def main() -> int:
         "route": "cuda",
         "source": "haploconduct_torch/csrc/score_tasks.cu",
         "replaces": "haploconduct_tpu/ops/pallas_score.py:75",
-        "launches": launches + split["launches"],
-        "launches_by_path": {"savage": launches, "polyte_split": split["launches"]},
+        "launches": launches + split["launches"] + mesh_launches,
+        "launches_by_path": {"savage": launches, "polyte_split": split["launches"],
+                             "mesh": mesh_launches},
         "max_abs_err": max(r["max_abs_err"] for r in report),
         "ms": env["ms"],
         "plain_ms": env["plain_ms"],

@@ -324,6 +324,34 @@ def finish_task_scores(sum_log, counted, mism, rejected, pos64, len_a, len_b,
     return TaskScores(score, mism_rate, sum_log, counted, mism, rejected)
 
 
+def check_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device without a card raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"scoring on {device}: CUDA device requested but "
+                           "torch.cuda.is_available() is False")
+    return device
+
+
+def check_tasks(codes: np.ndarray, lens_by_row, row_a, row_b, pos):
+    """Validate a non-empty task stream against its (R, W) matrix; the
+    kernel gathers without bounds checks, so this checks what it trusts.
+    Returns int64 (lens, row_a, row_b, pos)."""
+    lens = np.asarray(lens_by_row).astype(np.int64)
+    r, w = codes.shape
+    row_a = np.asarray(row_a, np.int64)
+    row_b = np.asarray(row_b, np.int64)
+    if len(lens) != r or int(lens.max()) > w or int(lens.min()) < 0:
+        raise ValueError("lens_by_row must give one length <= width per row")
+    if min(int(row_a.min()), int(row_b.min())) < 0 or \
+            max(int(row_a.max()), int(row_b.max())) >= r:
+        raise ValueError("task row ids out of range")
+    pos64 = np.asarray(pos, dtype=np.int64)
+    if int(pos64.min()) < 0 or int(pos64.max()) >= 2**31:
+        raise ValueError("task positions must lie in [0, 2^31)")
+    return lens, row_a, row_b, pos64
+
+
 def score_tasks_torch(
     codes: np.ndarray,
     quals: np.ndarray,
@@ -337,25 +365,10 @@ def score_tasks_torch(
 ) -> TaskScores:
     """Score tasks on `device` (a TaskScores of numpy arrays). On a CUDA
     device the kernel runs or this raises; it never falls back to the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("score_tasks_torch: CUDA device requested but "
-                           "torch.cuda.is_available() is False")
+    device = check_device(device)
     if len(row_a) == 0:
         return _empty_scores()
-    lens = np.asarray(lens_by_row).astype(np.int64)
-    r, w = codes.shape
-    row_a = np.asarray(row_a, np.int64)
-    row_b = np.asarray(row_b, np.int64)
-    # the kernel gathers without bounds checks: validate what it trusts
-    if len(lens) != r or int(lens.max()) > w or int(lens.min()) < 0:
-        raise ValueError("lens_by_row must give one length <= width per row")
-    if min(int(row_a.min()), int(row_b.min())) < 0 or \
-            max(int(row_a.max()), int(row_b.max())) >= r:
-        raise ValueError("task row ids out of range")
-    pos64 = np.asarray(pos, dtype=np.int64)
-    if int(pos64.min()) < 0 or int(pos64.max()) >= 2**31:
-        raise ValueError("task positions must lie in [0, 2^31)")
+    lens, row_a, row_b, pos64 = check_tasks(codes, lens_by_row, row_a, row_b, pos)
     comb = pack_for_device(codes, quals, device)
     cols = [torch.from_numpy(c.astype(np.int32)).to(device)
             for c in (lens, row_a, row_b, pos64)]

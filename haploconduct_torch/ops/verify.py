@@ -16,9 +16,11 @@ task2 = (trailA, trailB, pos2), argument-swapped for P-S and for P-P with
 ord='2'. This reproduces all 16 reference cases exactly.
 
 Backends: torch (the hand-written kernel on the CUDA device, its plain
-PyTorch version on the CPU), native (the C++ host engine) and numpy (the
-f64 oracle). The torch and native scores go through the same clamp, exact
-mismatch rates and per-task and per-overlap f64 rechecks at their margins.
+PyTorch version on the CPU; over every card of the process through
+parallel/mesh.py when default_devices() names more than one), native (the
+C++ host engine) and numpy (the f64 oracle). The torch and native scores
+go through the same clamp, exact mismatch rates and per-task and
+per-overlap f64 rechecks at their margins.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from ..core.reads import PackedUnits, ReadStore
+from ..parallel import mesh
 from ..utils.config import Settings
 from .score import (RECHECK_MARGIN, TaskScores, score_tasks_native,
                     score_tasks_numpy, score_tasks_torch)
@@ -303,9 +306,10 @@ def combine_scores(
 # test/diagnostic instrumentation: counters of how many tasks/overlaps the
 # exactness machinery re-scored in f64 during the last verify_overlaps call
 RECHECK_STATS = {"tasks": 0, "overlaps": 0}
-# cumulative tasks scored per backend; "recheck" counts the tasks the f64
-# oracle re-scored near a threshold (those calls are not a backend's)
-BACKEND_COUNTS = {"torch": 0, "native": 0, "numpy": 0, "recheck": 0}
+# cumulative tasks scored per backend; "mesh" counts the torch backend's
+# tasks sharded over several devices, "recheck" the tasks the f64 oracle
+# re-scored near a threshold (those calls are not a backend's)
+BACKEND_COUNTS = {"torch": 0, "mesh": 0, "native": 0, "numpy": 0, "recheck": 0}
 _counts_lock = threading.Lock()
 
 
@@ -360,8 +364,13 @@ def verify_overlaps(
         if ts is not None:
             _count("native", n_tasks)
     elif s.backend == "torch":
-        _count("torch", n_tasks)
-        ts = score_tasks_torch(*args, **kw, device=scoring_device())
+        devices = mesh.default_devices()
+        if len(devices) > 1:
+            _count("mesh", n_tasks)
+            ts = mesh.sharded_score_tasks(*args, **kw, devices=devices)
+        else:
+            _count("torch", n_tasks)
+            ts = score_tasks_torch(*args, **kw, device=devices[0])
     if ts is None:  # numpy, or the native extension is unavailable
         _count("numpy", n_tasks)
         ts = score_tasks_numpy(*args, **kw)

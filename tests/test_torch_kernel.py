@@ -16,6 +16,7 @@ import torch
 from haploconduct_torch.ops import kernels
 from haploconduct_torch.ops.score import (pack_for_device, score_tasks_numpy,
                                           score_tasks_plain, score_tasks_torch)
+from haploconduct_torch.parallel.mesh import sharded_score_tasks
 
 from torch_helpers import (cuda_device, far_threshold, random_matrix,  # noqa: F401
                            random_tasks)
@@ -97,3 +98,25 @@ def test_kernel_empty_stream_and_bad_columns(cuda_device):
     col = torch.zeros(3, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):  # rows not a multiple of 8 words
         kernels.score_tasks_cuda(comb[:, :6].contiguous(), lens, col, col, col, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["envelope_reads", "kb_contigs"])
+def test_sharded_score_tasks_on_cards_matches_one_call(cuda_device, shape):
+    """parallel/mesh.py on the card: two shards on one card, and every
+    visible card when there are several, launch the kernel once a shard
+    and give one call's per-task columns bit for bit (each task is summed
+    whole by one launch)."""
+    codes, quals, lens, row_a, row_b, pos, *_ = card_case(shape, cuda_device)
+    args = (codes, quals, lens, row_a, row_b, pos)
+    lists = [[cuda_device, cuda_device]]
+    if torch.cuda.device_count() > 1:
+        lists.append([torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+    for th in (0.0, far_threshold()):
+        one = score_tasks_torch(*args, mismatch_thresh=th, device=cuda_device)
+        for devices in lists:
+            before = kernels.score_tasks_cuda.launches
+            got = sharded_score_tasks(*args, mismatch_thresh=th, devices=devices)
+            assert kernels.score_tasks_cuda.launches == before + len(devices)
+            for name in one._fields:
+                np.testing.assert_array_equal(getattr(got, name), getattr(one, name))

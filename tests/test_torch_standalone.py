@@ -42,6 +42,8 @@ COPIED = [
     "utils/checkpoint.py",
     "workflows/freq_est.py", "workflows/min_ev_table.py",
     "workflows/strain_count.py",
+    "utils/simulate.py", "workflows/evaluate.py", "workflows/phasing_bench.py",
+    "io/converters.py",
 ]
 
 REFUSE = textwrap.dedent("""
@@ -118,10 +120,11 @@ DRIVE = """
     print("stage_a", *[res.store.seq_str(i) for i in range(len(res.store))])
 
     # POLYTE on the 3 kb, 20x input (tests/test_torch_polyte.py:diploid_reads)
+    from haploconduct_torch.utils.simulate import mutate_sequence, random_genome
     rng = np.random.default_rng(42)
-    hap1 = chip_smoke.sim_genome(rng, 3000)
-    hap2 = chip_smoke.sim_mutate(rng, hap1, 0.01)
-    reads = chip_smoke.codes_store(chip_smoke.sim_reads(rng, [hap1, hap2], 20, 150))
+    hap1 = random_genome(rng, 3000)
+    hap2 = mutate_sequence(hap1, rng, sub_rate=0.01)
+    reads = chip_smoke.sim_store([hap1, hap2], 20, 150, rng)
     pol = run_polyte(reads, PolyteConfig(
         backend="torch", candidates="host", hap_cov=20, insert_size=150,
         stddev=15, min_overlap_len=60, min_overlap_len_EC=77))
