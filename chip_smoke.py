@@ -39,9 +39,24 @@ Phases (each prints a line; any failure exits non-zero):
      iteration-1 stream scored by sharded_score_tasks over two shards on
      card 0, and over every visible card when there are several, against
      one score_tasks_torch call: all four per-task columns bit-equal; (b)
-     phase 4's SAVAGE run with default_devices() naming card 0 twice, so
+     phase 4's SAVAGE run with default_mesh() naming card 0 twice, so
      every verify call goes through the mesh: contigs byte-identical to
-     phase 4's, every task counted under "mesh", more launches than phase 4.
+     phase 4's, every task counted under "mesh", more launches than phase 4;
+ 10. the JAX package's last device paths (parallel/mesh.py): (a) the
+     multi-device dry run's steps 2-4 at their own sizes (its tiny
+     workload: 64 reads of 96 bp at width 128) over card 0 twice, and over
+     every card when there are several: sharded_score_tasks and
+     sharded_verify against one call, sharded_assembly_step (k=13, expand
+     8, threshold 0.9, min overlap 24) against the same step on the CPU
+     (its plain version), and the per-shard count of scores above 0.97;
+     (b) the fused k-mer join + verify step at full size, over phase 4's
+     envelope patch (88,928 rows of 150; k=13, expand 8, threshold 0.97,
+     min overlap 30): one device against two shards on card 0 (and every
+     card, when there are several) bit-equal,
+     the join_verify kernel against its plain version on every query row
+     (zero pattern equal, scores within 1e-5, slot counts equal but for
+     slots within 1e-5 of the threshold), then the kernel's and the plain
+     version's times and the bound.
 
 Phase 4 also prints the stage c contigs' genome fraction and mismatch rate
 against the four strains (workflows/evaluate.py); no check reads them. The
@@ -49,7 +64,8 @@ inputs of phases 6-8 come from the port's copy of the repo's simulator
 (utils/simulate.py). Before the summary the script checks that no module
 of the JAX package and no jax was loaded.
 The second-to-last line is a JSON summary of the kernels; the last line is
-{"ok": true, "device": {...}}. Without a CUDA card it exits 1.
+{"ok": true, "device": {...}}. Without a CUDA card it exits 1. The run is
+on the card: it sets HC_TORCH_DEVICE=cuda for its own process.
 """
 
 from __future__ import annotations
@@ -326,6 +342,7 @@ def store_seqs(store):
 
 def reset_counts(kernels, backend_counts, join_calls, join_seconds):
     kernels.score_tasks_cuda.launches = 0
+    kernels.join_verify_cuda.launches = 0
     for key in backend_counts:
         backend_counts[key] = 0
     join_calls.clear()
@@ -481,6 +498,190 @@ def phase_polyte_split(torch, workdir):
     return a
 
 
+def tiny_workload(n_reads=64, read_len=96, n_tasks=256, seed=0):
+    """__graft_entry__._tiny_workload's draws, with the port's store: the
+    (2 * n_reads, 128) packed codes and quals, one length per row, and a
+    random task stream."""
+    from haploconduct_torch.workflows.savage import ReadStore
+
+    rng = np.random.default_rng(seed)
+    store = ReadStore()
+    genome = "".join("ACGT"[b] for b in rng.integers(0, 4, 6 * read_len))
+    for i in range(n_reads):
+        start = int(rng.integers(0, len(genome) - read_len + 1))
+        qual = "".join(chr(33 + int(q)) for q in rng.integers(20, 41, read_len))
+        store.add_single(i, genome[start:start + read_len], qual)
+    store.readcount_single = n_reads
+    packed = store.pack(width=128)
+    row_a = rng.integers(0, n_reads, n_tasks).astype(np.int32)
+    row_b = rng.integers(0, n_reads, n_tasks).astype(np.int32)
+    pos = rng.integers(0, read_len // 2, n_tasks).astype(np.int32)
+    lens = np.concatenate([packed.lens, packed.lens]).astype(np.int32)
+    return packed.codes, packed.quals, lens, row_a, row_b, pos
+
+
+def check_step(got, want, threshold, what):
+    """Slot scores and counts of two runs of the join + verify step: zero
+    pattern equal, scores within 1e-5, counts equal but for slots within
+    1e-5 of the threshold. Returns the largest score difference."""
+    (gs, gn), (ws, wn) = got, want
+    if gs.shape != ws.shape or not np.array_equal(gs == 0, ws == 0):
+        raise AssertionError(f"{what}: the zero pattern of the slot scores differs")
+    err = float(np.abs(gs - ws).max()) if gs.size else 0.0
+    if err > 1e-5:
+        raise AssertionError(f"{what}: slot scores differ by {err}")
+    if abs(gn - wn) > int(np.sum(np.abs(ws - threshold) < 1e-5)):
+        raise AssertionError(f"{what}: slot counts {gn} and {wn} differ")
+    return err
+
+
+def phase_dryrun_steps(torch, device_lists):
+    """Phase 10 (a): the dry run's steps 2-4 over each list of devices."""
+    from haploconduct_torch.ops.score import score_tasks_torch
+    from haploconduct_torch.parallel import mesh
+
+    cpu = torch.device("cpu")
+    step_kw = dict(k=13, expand=8, edge_threshold=0.9, min_overlap_len=24)
+    for devices in device_lists:
+        codes, quals, lens, row_a, row_b, pos = tiny_workload(n_tasks=32 * len(devices))
+        tasks = (codes, quals, lens, row_a, row_b, pos)
+        # step 2: the sharded scorer on an explicit task stream
+        ts = mesh.sharded_score_tasks(*tasks, devices=devices)
+        one = score_tasks_torch(*tasks, device=devices[0])
+        if ts.score.shape != row_a.shape or any(
+                not np.array_equal(getattr(ts, c), getattr(one, c)) for c in one._fields):
+            raise AssertionError(f"dry run step 2 over {devices}: not one call's scores")
+        cols = mesh.sharded_verify(devices, *tasks)
+        want = (ts.score, ts.mismatch_rate, ts.counted, ts.mismatches)
+        if any(not np.array_equal(c, w.astype(c.dtype)) for c, w in zip(cols, want)):
+            raise AssertionError(f"dry run step 2 over {devices}: sharded_verify "
+                                 "differs from sharded_score_tasks")
+        # step 3: the join + verify step, against its plain version on the CPU
+        step = mesh.sharded_assembly_step(devices, codes, quals, lens, **step_kw)
+        plain = mesh.sharded_assembly_step([cpu], codes, quals, lens, **step_kw)
+        err = check_step(step, plain, 0.9, f"dry run step 3 over {devices}")
+        if step[0].ndim != 2 or step[1] <= 0:
+            raise AssertionError("dry run step 3: no slot above the threshold")
+        # step 4: a count over the verified scores, shard by shard
+        per = -(-len(ts.score) // len(devices))
+        n2 = sum(int((torch.from_numpy(ts.score[i * per:(i + 1) * per]).to(dev) > 0.97)
+                     .sum()) for i, dev in enumerate(devices))
+        if n2 != int(np.sum(ts.score > 0.97)):
+            raise AssertionError("dry run step 4: the shards' counts do not add up")
+        log(f"[mesh_dryrun] over {[str(d) for d in devices]}: step 2 {len(row_a)} "
+            f"tasks = one call, sharded_verify the same; step 3 {step[0].shape} slot "
+            f"scores, {step[1]} slots above 0.9 (max |diff| to the CPU {err:.3g}); "
+            f"step 4 {n2} tasks above 0.97")
+
+
+def envelope_join_inputs(patch):
+    """Phase 4's envelope patch as the join's input: the packed matrix
+    (forward and reverse-complement rows) and one length per row."""
+    packed = patch.pack()
+    lens = np.concatenate([packed.lens, packed.lens]).astype(np.int32)
+    return packed.codes, packed.quals, lens
+
+
+JOIN_KW = dict(k=13, expand=8, edge_threshold=0.97, min_overlap_len=30)
+
+
+def phase_join_verify(torch, inputs, card0):
+    """Phase 10 (b), the main path: sharded_assembly_step at full size on
+    one device, over two shards on card 0 and over every card when there
+    are several, bit-equal."""
+    from haploconduct_torch.parallel import mesh
+
+    runs = {"one device": [card0], "two shards on card 0": [card0, card0]}
+    if torch.cuda.device_count() > 1:
+        runs[f"{torch.cuda.device_count()} cards"] = mesh.default_mesh()
+    seconds = {}
+    for name, devices in runs.items():
+        t0 = time.perf_counter()
+        got = mesh.sharded_assembly_step(devices, *inputs, **JOIN_KW)
+        seconds[name] = time.perf_counter() - t0
+        if name == "one device":
+            one = got
+        elif not np.array_equal(one[0], got[0]) or one[1] != got[1]:
+            raise AssertionError(f"join_verify: {name} differs from one device")
+    if one[1] <= 0:
+        raise AssertionError("join_verify: no slot above the threshold")
+    scores, n_edges = one
+    log(f"[join_verify] envelope patch {inputs[0].shape}, k={JOIN_KW['k']} expand="
+        f"{JOIN_KW['expand']}: {scores.size} slots, {int(np.sum(scores > 0))} "
+        f"verified, {n_edges} above {JOIN_KW['edge_threshold']}; sharded_assembly_step "
+        "(host clock) " + ", ".join(f"{k} {v:.3f}s" for k, v in seconds.items())
+        + ", bit-equal")
+    return one
+
+
+def step_bound(torch, comb, lens, t_rid, t_pos, left, count, nk, expand):
+    """The least time the card could take for one join_verify call on
+    these inputs, in ms, what bounds it, and the lanes scored. Bytes, at
+    the HBM rate: the matrix, the row lengths, the table's row and
+    position columns, left and count, and 4 B of score a slot. Operations,
+    at the FP32 rate: one f32 add for each lane of each valid slot's
+    diagonal (this run's data)."""
+    n = left.shape[0]
+    moved = (comb.numel() * 2 + lens.numel() * 4 + t_rid.numel() * 8
+             + n * 8 + n * expand * 4)
+    d = torch.arange(expand, device=left.device)
+    lens64 = lens.long()
+    lanes = 0
+    for s in range(0, n, 1 << 22):
+        q = torch.arange(s, min(s + (1 << 22), n), device=left.device)
+        t = torch.clamp(left[q].long()[:, None] + d, max=t_rid.numel() - 1)
+        rb = t_rid[t].long()
+        r = torch.div(q, nk, rounding_mode="floor")[:, None]
+        shift = (q % nk)[:, None] - t_pos[t].long()
+        valid = (d < count[q][:, None]) & (rb != r) & (shift >= 0)
+        L = torch.minimum(lens64[r] - shift, lens64[rb]).clamp(min=0)
+        lanes += int(torch.where(valid, L, 0).sum())
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = lanes / FP32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), lanes
+
+
+def measure_join_verify(torch, inputs, one, card0):
+    """Phase 10 (b), after the main path's launches are read: the kernel
+    against its plain version on every query row of the patch, then both
+    timed, beside the bound. `one` is the main path's one-device result,
+    which the kernel's output must equal bit for bit."""
+    from haploconduct_torch.ops.join_verify import join_verify_plain, kmer_queries
+    from haploconduct_torch.ops.kernels import join_verify_cuda
+    from haploconduct_torch.ops.kmer_device import kmer_hashes, kmer_table
+    from haploconduct_torch.ops.score import pack_for_device
+
+    codes, quals, lens = inputs
+    R, W = codes.shape
+    k, expand = JOIN_KW["k"], JOIN_KW["expand"]
+    nk = W - k + 1
+    comb = pack_for_device(codes, quals, card0)
+    lens_d = torch.from_numpy(lens).to(card0)
+    tkey, t_rid, t_pos = kmer_table(kmer_hashes(comb[:, :W] & 7, k).reshape(-1), nk)
+    left, count = kmer_queries(comb, W, k, tkey, 0, R)
+    full = (comb, lens_d, t_rid, t_pos, left, count, 0, nk, expand,
+            JOIN_KW["min_overlap_len"], JOIN_KW["edge_threshold"])
+    got = [t.cpu().numpy() for t in join_verify_cuda(*full)]
+    want = [t.cpu().numpy() for t in join_verify_plain(*full)]
+    err = check_step((got[0], int(got[1][0])), (want[0], int(want[1][0])),
+                     JOIN_KW["edge_threshold"],
+                     f"join_verify kernel vs plain on all {R} query rows")
+    if not np.array_equal(got[0], one[0].reshape(-1)):
+        raise AssertionError("join_verify: the timed launch differs from the main path's")
+    del got, want
+    ms = cuda_ms(lambda: join_verify_cuda(*full), 5)
+    plain_ms = cuda_ms(lambda: join_verify_plain(*full), 1)
+    bound_ms, bound_by, lanes = step_bound(torch, comb, lens_d, t_rid, t_pos,
+                                           left, count, nk, expand)
+    log(f"[join_verify] kernel vs plain on all {R} query rows ({R * nk} queries, "
+        f"{lanes} lanes): zero pattern equal, max_abs_err={err:.3g}; "
+        f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f} ({bound_by})")
+    del comb, tkey, t_rid, t_pos, left, count, full
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
 def contig_sets(res):
     return {s: res.contigs(s) for s in "abc"
             if (res.combined_store if s == "a" else getattr(res, f"stage_{s}")) is not None}
@@ -501,7 +702,7 @@ def phase_mesh_stream(torch, reps=3):
              "2 shards on card 0": lambda th: mesh.sharded_score_tasks(
                  *args, mismatch_thresh=th, devices=[card0, card0])}
     if torch.cuda.device_count() > 1:
-        cards = mesh.default_devices()
+        cards = mesh.default_mesh()
         calls[f"{len(cards)} cards"] = lambda th: mesh.sharded_score_tasks(
             *args, mismatch_thresh=th, devices=cards)
     for th in (0.0, far_threshold()):
@@ -526,7 +727,7 @@ def phase_mesh_stream(torch, reps=3):
 
 
 def phase_mesh_savage(torch, patch, want, tasks, launches):
-    """Phase 9 (b): SAVAGE on the envelope patch with default_devices()
+    """Phase 9 (b): SAVAGE on the envelope patch with default_mesh()
     naming card 0 twice, so every verify call goes through the mesh.
     `want`, `tasks` and `launches` are phase 4's torch contigs, tasks and
     kernel launches."""
@@ -536,8 +737,8 @@ def phase_mesh_savage(torch, patch, want, tasks, launches):
     from haploconduct_torch.workflows.savage import SavageConfig, run_savage
 
     card0 = torch.device("cuda", 0)
-    saved = mesh.default_devices
-    mesh.default_devices = lambda: [card0, card0]
+    saved = mesh.default_mesh
+    mesh.default_mesh = lambda: [card0, card0]
     try:
         for key in BACKEND_COUNTS:
             BACKEND_COUNTS[key] = 0
@@ -548,10 +749,10 @@ def phase_mesh_savage(torch, patch, want, tasks, launches):
         mesh_launches = kernels.score_tasks_cuda.launches
         counts = dict(BACKEND_COUNTS)
     finally:
-        mesh.default_devices = saved
+        mesh.default_mesh = saved
     verify_s = sum(r.phase_times.get("verify", 0.0)
                    for r in (res.stage_a, res.stage_b, res.stage_c) if r is not None)
-    log(f"[mesh_b] SAVAGE a->b->c, default_devices() = [cuda:0, cuda:0]: "
+    log(f"[mesh_b] SAVAGE a->b->c, default_mesh() = [cuda:0, cuda:0]: "
         f"wall={wall:.2f}s verify_phase={verify_s:.2f}s kernel launches="
         f"{mesh_launches} (phase 4: {launches}) tasks={counts}")
     if contig_sets(res) != want:
@@ -569,6 +770,7 @@ def phase_mesh_savage(torch, patch, want, tasks, launches):
 def main() -> int:
     import torch
 
+    os.environ["HC_TORCH_DEVICE"] = "cuda"
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card",
               file=sys.stderr)
@@ -584,15 +786,18 @@ def main() -> int:
     from haploconduct_torch.workflows.savage import (
         SavageConfig, denovo_candidates, run_savage)
 
-    # phase 1: build
+    # phase 1: build every kernel, one nvcc per source at once
     t0 = time.perf_counter()
-    kernels.load()
-    log(f"[build] {kernels.SCORE_SRC.name} -> {kernels.BUILD_DIR}: "
-        f"{time.perf_counter() - t0:.2f}s")
-    ptxas = kernels.BUILD_DIR / f"{kernels.SCORE_SRC.stem}.log"
-    for line in (ptxas.read_text().splitlines() if ptxas.exists() else []):
-        if "registers" in line or "spill" in line:
-            log(f"[build] ptxas: {line.strip()}")
+    kernels.build_all()
+    for src in (kernels.SCORE_SRC, kernels.JOIN_SRC):
+        kernels.load(src)
+    log(f"[build] {kernels.SCORE_SRC.name}, {kernels.JOIN_SRC.name} -> "
+        f"{kernels.BUILD_DIR}: {time.perf_counter() - t0:.2f}s")
+    for src in (kernels.SCORE_SRC, kernels.JOIN_SRC):
+        ptxas = kernels.BUILD_DIR / f"{src.stem}.log"
+        for line in (ptxas.read_text().splitlines() if ptxas.exists() else []):
+            if "registers" in line or "spill" in line:
+                log(f"[build] ptxas {src.stem}: {line.strip()}")
 
     # phase 2: kernel vs plain
     report = phase_kernel(torch, np.random.default_rng(SEED))
@@ -672,6 +877,30 @@ def main() -> int:
     mesh_launches = phase_mesh_savage(torch, patch, runs["torch"], counts["torch"],
                                       launches)
 
+    # phase 10: the dry run's steps 2-4 and the fused join + verify step
+    # at full size, the main path of the join_verify kernel
+    from haploconduct_torch.parallel import mesh
+
+    card0 = torch.device("cuda", 0)
+    device_lists = [[card0, card0]]
+    if torch.cuda.device_count() > 1:
+        device_lists.append(mesh.default_mesh())
+    inputs = envelope_join_inputs(patch)
+    t0 = time.perf_counter()
+    kernels.score_tasks_cuda.launches = 0
+    kernels.join_verify_cuda.launches = 0
+    phase_dryrun_steps(torch, device_lists)
+    one = phase_join_verify(torch, inputs, card0)
+    dryrun_launches = kernels.score_tasks_cuda.launches
+    join_launches = kernels.join_verify_cuda.launches
+    if dryrun_launches == 0 or join_launches == 0:
+        raise AssertionError("phase 10 did not launch both kernels: "
+                             f"{dryrun_launches} and {join_launches}")
+    join = measure_join_verify(torch, inputs, one, card0)
+    del one, inputs
+    log(f"[phase 10] {time.perf_counter() - t0:.1f}s; launches score_tasks "
+        f"{dryrun_launches}, join_verify {join_launches}")
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("haploconduct_tpu", "jax", "jaxlib"))
     if loaded:
@@ -684,14 +913,28 @@ def main() -> int:
         "route": "cuda",
         "source": "haploconduct_torch/csrc/score_tasks.cu",
         "replaces": "haploconduct_tpu/ops/pallas_score.py:75",
-        "launches": launches + split["launches"] + mesh_launches,
+        "launches": launches + split["launches"] + mesh_launches + dryrun_launches,
         "launches_by_path": {"savage": launches, "polyte_split": split["launches"],
-                             "mesh": mesh_launches},
+                             "mesh": mesh_launches, "mesh_dryrun": dryrun_launches},
         "max_abs_err": max(r["max_abs_err"] for r in report),
         "ms": env["ms"],
         "plain_ms": env["plain_ms"],
         "bound_ms": env["bound_ms"],
         "bound_by": env["bound_by"],
+        # no single PyTorch call computes this function
+        "library_ms": None,
+    }, {
+        "name": "join_verify",
+        "route": "cuda",
+        "source": "haploconduct_torch/csrc/join_verify.cu",
+        # a jnp device program (sharded_pipeline_fn), not a Pallas kernel
+        "replaces": "haploconduct_tpu/parallel/mesh.py:404",
+        "launches": join_launches,
+        "max_abs_err": join["max_abs_err"],
+        "ms": join["ms"],
+        "plain_ms": join["plain_ms"],
+        "bound_ms": join["bound_ms"],
+        "bound_by": join["bound_by"],
         # no single PyTorch call computes this function
         "library_ms": None,
     }]}), flush=True)

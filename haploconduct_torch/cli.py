@@ -4,8 +4,10 @@ polyte-split,count-strains}``.
 The subcommands of the reference CLI with the same arguments. --backend
 defaults to auto, the CUDA kernel on the card; without a card auto stops
 with an error, and the host engines run when named (--backend native or
-numpy). polyte's --candidates auto re-overlaps contigs with the torch
-sort-join on the card when one is present.
+numpy). --device (default cuda, or HC_TORCH_DEVICE) says where the torch
+backend runs: --device cpu runs its plain versions on the CPU, the only
+way it runs there. polyte's --candidates auto re-overlaps contigs with the
+torch sort-join when the torch backend runs on a card.
 """
 
 from __future__ import annotations
@@ -15,8 +17,24 @@ import os
 import sys
 
 from .core.reads import ReadStore, decode_seq
+from .parallel.devices import DEVICE_ENV
 
 BACKENDS = ["torch", "native", "numpy", "auto"]
+
+
+def _add_device(ap) -> None:
+    ap.add_argument("--device", default=os.environ.get(DEVICE_ENV) or "cuda",
+                    choices=["cuda", "cpu"],
+                    help="where the torch backend runs: the CUDA card, or "
+                         f"the CPU ({DEVICE_ENV}=cpu)")
+
+
+def _parse(ap, argv):
+    """Parse argv; --device becomes the process's HC_TORCH_DEVICE, which
+    parallel/devices.py:default_devices reads."""
+    args = ap.parse_args(argv)
+    os.environ[DEVICE_ENV] = args.device
+    return args
 
 
 def _load_store(args) -> ReadStore:
@@ -62,10 +80,11 @@ def cmd_savage(argv) -> int:
     ap.add_argument("--resume", action="store_true",
                     help="reuse completed stage checkpoints in the output dir")
     ap.add_argument("--backend", default="auto", choices=BACKENDS)
+    _add_device(ap)
     ap.add_argument("--profile_dir", default="",
                     help="write a torch.profiler Chrome trace per stage")
     ap.add_argument("--verbose", action="store_true")
-    args = ap.parse_args(argv)
+    args = _parse(ap, argv)
 
     store = _load_store(args)
     cfg = SavageConfig(
@@ -129,8 +148,9 @@ def cmd_polyte(argv) -> int:
     ap.add_argument("--candidates", default="auto",
                     choices=["auto", "host", "device"],
                     help="per-iteration re-overlap engine (device = torch sort-join)")
+    _add_device(ap)
     ap.add_argument("--verbose", action="store_true")
-    args = ap.parse_args(argv)
+    args = _parse(ap, argv)
 
     store = _load_store(args)
     cfg = PolyteConfig(
@@ -173,7 +193,8 @@ def cmd_polyte_split(argv) -> int:
     ap.add_argument("--mismatch_rate", dest="merge_contigs", type=float, default=0.0)
     ap.add_argument("-o", "--outdir", default=".")
     ap.add_argument("--backend", default="auto", choices=BACKENDS)
-    args = ap.parse_args(argv)
+    _add_device(ap)
+    args = _parse(ap, argv)
     store = _load_store(args)
     cfg = PolyteSplitConfig(
         hap_cov=args.hap_cov, insert_size=args.insert_size, stddev=args.stddev,

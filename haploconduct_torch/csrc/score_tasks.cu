@@ -60,37 +60,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lane_p.cuh"
+
 namespace {
 
 constexpr int kSeg = 512;
-constexpr int kNCode = 4;
 constexpr int kThreads = 256;
 constexpr int kTile = 512;  // tasks per staged tile, at most
-constexpr int kQMax = 94;   // phreds tabulated at most
-// float(np.log(10.0) / 10.0): the constant of the reference's f32 body
-constexpr float kLog10Over10 = 0.23025850929940458f;
 
 // the plain version's subtask stream keeps seg_len in the low 10 bits
 static_assert(kSeg < 1024, "seg_len travels in 10 bits of bolen");
-
-// Probability that both bases were read from one haplotype, in the
-// operation order of the plain version (ops/score.py:segment_scores_torch).
-// The __f*_rn intrinsics keep nvcc from contracting into FMAs, so every
-// call site rounds alike.
-__device__ __forceinline__ float lane_p(int qa, int qb, bool match) {
-  const float p1 = expf(__fmul_rn(static_cast<float>(qa), -kLog10Over10));
-  const float p2 = expf(__fmul_rn(static_cast<float>(qb), -kLog10Over10));
-  const float third = 1.0f / 3.0f;
-  if (match) {
-    return __fadd_rn(__fmul_rn(__fsub_rn(1.0f, p1), __fsub_rn(1.0f, p2)),
-                     __fmul_rn(__fmul_rn(p1, p2), third));
-  }
-  return __fadd_rn(
-      __fmul_rn(__fadd_rn(__fmul_rn(p1, __fsub_rn(1.0f, p2)),
-                          __fmul_rn(p2, __fsub_rn(1.0f, p1))),
-                third),
-      __fmul_rn(2.0f / 9.0f, __fmul_rn(p1, p2)));
-}
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -386,18 +365,17 @@ extern "C" int hc_score_tasks(const void* comb, int64_t rw, const void* lens,
   if (n <= 0) return static_cast<int>(cudaSuccess);
   if (rw % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (max_qual < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const bool wide = max_qual >= kQMax;
-  const int q_tab = wide ? kQMax : max_qual + 1;
+  const LogTable tab = log_table(max_qual);
   LaunchFn f;
   switch (group) {
-    case 4: f = pick<4>(mismatch_thresh, wide); break;
-    case 32: f = pick<32>(mismatch_thresh, wide); break;
+    case 4: f = pick<4>(mismatch_thresh, tab.wide); break;
+    case 32: f = pick<32>(mismatch_thresh, tab.wide); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return f(static_cast<const int16_t*>(comb), rw,
            static_cast<const int32_t*>(lens), static_cast<const int32_t*>(row_a),
            static_cast<const int32_t*>(row_b), static_cast<const int32_t*>(pos),
-           n, mismatch_thresh, q_tab, static_cast<int*>(tiles),
+           n, mismatch_thresh, tab.q_tab, static_cast<int*>(tiles),
            static_cast<double*>(sum_log), static_cast<int32_t*>(counted),
            static_cast<int32_t*>(mism), static_cast<int32_t*>(rejected),
            static_cast<cudaStream_t>(stream));

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..core.reads import revcomp_codes
+from ..parallel.devices import default_device
 from .kmer import _kmer_hashes
 
 
@@ -185,9 +186,12 @@ class PseudoIndex:
 
 
 def _em_torch(membership: np.ndarray, counts: np.ndarray,
-              eff_len: np.ndarray, iters: int, device="cpu") -> np.ndarray:
-    """EM on `device`: membership (C, T) 0/1, counts (C,); returns
-    est_counts (T,) as float64."""
+              eff_len: np.ndarray, iters: int, device=None) -> np.ndarray:
+    """EM on `device` (None: the torch backend's device,
+    parallel/devices.py:default_device): membership (C, T) 0/1, counts (C,);
+    returns est_counts (T,) as float64."""
+    if device is None:
+        device = default_device()
     M = torch.as_tensor(membership, dtype=torch.float32, device=device)
     cnt = torch.as_tensor(counts, dtype=torch.float32, device=device)
     inv_el = torch.as_tensor(1.0 / eff_len, dtype=torch.float32, device=device)
@@ -248,9 +252,7 @@ def estimate_abundance(
 
         backend = resolve_backend()
     if backend == "torch":
-        from .verify import scoring_device
-
-        alpha = _em_torch(membership, counts, eff_len, em_iters, scoring_device())
+        alpha = _em_torch(membership, counts, eff_len, em_iters)
     else:
         alpha = _em_numpy(membership, counts, eff_len, em_iters)
 

@@ -1,10 +1,13 @@
 """Build, load and launch the hand-written CUDA kernels of the port.
 
-`csrc/score_tasks.cu` is compiled with nvcc for sm_90a into a shared
-library with a plain C interface and bound with ctypes. The build happens
-at first use, into `build/torch_kernels/` at the root of the checkout
-(listed in .gitignore), and again whenever the source is newer than the
-library. Nothing here runs when the module is imported.
+Each source under `csrc/` (score_tasks.cu, join_verify.cu) is compiled
+with nvcc for sm_90a into a shared library with a plain C interface and
+bound with ctypes; both include csrc/lane_p.cuh. The build happens at
+first use, into `build/torch_kernels/` at the root of the checkout
+(listed in .gitignore), and again whenever the source or a header of
+csrc/ is newer than the library;
+`build_all` runs one nvcc per source at once. Nothing here runs when the
+module is imported.
 """
 
 from __future__ import annotations
@@ -15,12 +18,14 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SCORE_SRC = _PKG / "csrc" / "score_tasks.cu"
+JOIN_SRC = _PKG / "csrc" / "join_verify.cu"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -57,7 +62,8 @@ def build(src: Path) -> Path:
     compiler's resource report (-Xptxas -v) goes to BUILD_DIR/<stem>.log."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / f"lib{src.stem}.so"
-    if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+    newest = max(f.stat().st_mtime for f in (src, *src.parent.glob("*.cuh")))
+    if out.exists() and out.stat().st_mtime >= newest:
         return out
     # build to a temporary name and rename: a concurrent build never
     # loads a half-written library
@@ -76,20 +82,43 @@ def build(src: Path) -> Path:
     return out
 
 
-def load() -> ctypes.CDLL:
-    """Build (if needed) and load the scoring kernel's library once per
-    process."""
+def build_all() -> list:
+    """Build every kernel's library, one nvcc per source, all at once."""
+    with ThreadPoolExecutor(max_workers=len(_ENTRY)) as pool:
+        return list(pool.map(build, _ENTRY))
+
+
+_p, _i32, _i64, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+# each source's C entry point and its argument types
+_ENTRY = {
+    SCORE_SRC: ("hc_score_tasks", [_p, _i64, _p, _p, _p, _p, _i64, _f32, _i32,
+                                   _i32, _p, _p, _p, _p, _p, _p]),
+    JOIN_SRC: ("hc_join_verify", [_p, _i64, _p, _p, _p, _p, _p, _i64, _i32, _i32,
+                                  _i32, _i32, _f32, _i32, _p, _p, _p]),
+}
+
+
+def load(src: Path = SCORE_SRC):
+    """Build (if needed) and load the library of `src` once per process;
+    returns its C entry point."""
     with _lock:
-        lib = _libs.get("score")
-        if lib is None:
-            lib = ctypes.CDLL(str(build(SCORE_SRC)))
-            fn = lib.hc_score_tasks
-            p, i64 = ctypes.c_void_p, ctypes.c_int64
-            fn.argtypes = [p, i64, p, p, p, p, i64, ctypes.c_float, ctypes.c_int,
-                           ctypes.c_int, p, p, p, p, p, p]
+        fn = _libs.get(src)
+        if fn is None:
+            name, argtypes = _ENTRY[src]
+            fn = getattr(ctypes.CDLL(str(build(src))), name)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _libs["score"] = lib
-    return lib
+            _libs[src] = fn
+    return fn
+
+
+def _launch(fn, dev: torch.device, args) -> int:
+    """Call a C entry point with `dev` as the current device: a kernel
+    launches on the current device."""
+    if dev.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(dev):
+        return fn(*args)
 
 
 def score_tasks_cuda(comb: torch.Tensor, lens: torch.Tensor, row_a: torch.Tensor,
@@ -135,16 +164,11 @@ def score_tasks_cuda(comb: torch.Tensor, lens: torch.Tensor, row_a: torch.Tensor
     # the table covers phreds up to this one; a lower value would let
     # lanes index past it
     max_qual = int(comb.max()) >> 3
-    lib = load()
     args = (comb.data_ptr(), comb.shape[1], lens.data_ptr(),
             *(c.data_ptr() for c in cols), n, float(mismatch_thresh), int(max_qual),
             group, tiles.data_ptr(), sum_log.data_ptr(), counted.data_ptr(),
             mism.data_ptr(), rej.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if dev.index == torch.cuda.current_device():
-        err = lib.hc_score_tasks(*args)
-    else:  # the kernel launches on the current device
-        with torch.cuda.device(dev):
-            err = lib.hc_score_tasks(*args)
+    err = _launch(load(SCORE_SRC), dev, args)
     if err != 0:
         raise RuntimeError(f"score_tasks kernel launch failed: CUDA error {err}")
     with _lock:
@@ -153,3 +177,55 @@ def score_tasks_cuda(comb: torch.Tensor, lens: torch.Tensor, row_a: torch.Tensor
 
 
 score_tasks_cuda.launches = 0
+
+
+def join_verify_cuda(comb: torch.Tensor, lens: torch.Tensor, t_rid: torch.Tensor,
+                     t_pos: torch.Tensor, left: torch.Tensor, count: torch.Tensor,
+                     row0: int, nk: int, expand: int, min_overlap_len: int,
+                     edge_threshold: float):
+    """Launch the fused join + verify kernel on the current stream of
+    comb's device.
+
+    comb: (R, RW) int16 code | qual << 3 words (ops/score.py:
+    pack_for_device); lens: (R,) int32; t_rid, t_pos: (T,) int32, the
+    sorted k-mer table; left, count: (n,) int32 per query k-mer of rows
+    row0 .. row0 + n / nk. Returns (scores (n * expand,) f32 in slot
+    order, n_edges (1,) int32). The caller guarantees every index in range
+    (ops/join_verify.py builds them). 8 lanes score each slot. The
+    kernel's table is sized by the largest phred in comb, read here on the
+    card. Raises on a refused launch."""
+    if (not comb.is_cuda or comb.dtype != torch.int16 or comb.dim() != 2
+            or not comb.is_contiguous()):
+        raise ValueError("comb must be a contiguous 2-D int16 CUDA tensor")
+    n = left.shape[0]
+    if n % nk or row0 < 0 or row0 + n // nk > comb.shape[0]:
+        raise ValueError("the queries must be whole rows of comb")
+    if lens.shape != (comb.shape[0],) or t_rid.shape != t_pos.shape \
+            or count.shape != left.shape:
+        raise ValueError("lens must be (R,), the table and query columns alike")
+    for c in (lens, t_rid, t_pos, left, count):
+        if c.device != comb.device or c.dtype != torch.int32 or c.dim() != 1:
+            raise ValueError("lens, table and query columns must be 1-D int32 "
+                             "on comb's device")
+    lens, t_rid, t_pos, left, count = (c.contiguous() for c in
+                                       (lens, t_rid, t_pos, left, count))
+    dev = comb.device
+    scores = torch.empty(n * expand, dtype=torch.float32, device=dev)
+    n_edges = torch.zeros(1, dtype=torch.int32, device=dev)
+    if n == 0 or expand == 0:
+        return scores, n_edges
+    max_qual = int(comb.max()) >> 3
+    args = (comb.data_ptr(), comb.shape[1], lens.data_ptr(), t_rid.data_ptr(),
+            t_pos.data_ptr(), left.data_ptr(), count.data_ptr(), n, int(row0),
+            int(nk), int(expand), int(min_overlap_len), float(edge_threshold),
+            max_qual, scores.data_ptr(), n_edges.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    err = _launch(load(JOIN_SRC), dev, args)
+    if err != 0:
+        raise RuntimeError(f"join_verify kernel launch failed: CUDA error {err}")
+    with _lock:
+        join_verify_cuda.launches += 1
+    return scores, n_edges
+
+
+join_verify_cuda.launches = 0

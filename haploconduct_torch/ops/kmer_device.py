@@ -28,6 +28,7 @@ import torch
 
 from ..core.reads import N_CODE, PAD_CODE, revcomp_codes
 from ..io.sfo import SFO_DTYPE
+from ..parallel.devices import default_device
 from .kmer import _pack_keys, _verify_candidates
 
 # join calls and their wall seconds per device type ("cuda", "cpu");
@@ -55,6 +56,16 @@ def kmer_hashes(codes: torch.Tensor, k: int) -> torch.Tensor:
         h = h * 4 + torch.where(ok, c, 0)
         bad |= ~ok
     return torch.where(bad, -1, h)
+
+
+def kmer_table(h: torch.Tensor, nk: int):
+    """The sorted k-mer table of flat (R * NK,) row-major hashes: (tkey,
+    t_rid, t_pos) int32, invalid hashes stored as 2^31 - 1 and sorted
+    stably, so a hash group keeps the row-major (row, pos) order of the
+    reference's stable sort."""
+    tkey, order = torch.sort(torch.where(h < 0, INT32_MAX, h), stable=True)
+    t_rid = torch.div(order, nk, rounding_mode="floor").to(torch.int32)
+    return tkey, t_rid, (order % nk).to(torch.int32)
 
 
 def _join_keys(tkey: torch.Tensor, t_rid: torch.Tensor, t_pos: torch.Tensor,
@@ -108,10 +119,7 @@ def join_candidates(codes_fwd: np.ndarray, codes_rev: np.ndarray, k: int,
         raise ValueError("sequences must be shorter than 2^30")
     fwd = torch.from_numpy(codes_fwd).to(device)
     th = kmer_hashes(fwd, k).reshape(-1)
-    tkey, order = torch.sort(torch.where(th < 0, INT32_MAX, th), stable=True)
-    t_rid = torch.div(order, nk, rounding_mode="floor").to(torch.int32)
-    t_pos = (order % nk).to(torch.int32)
-    del order
+    tkey, t_rid, t_pos = kmer_table(th, nk)
     keys = [_join_keys(tkey, t_rid, t_pos, th, nk, 0, expand, max_group)]
     del th
     rev = torch.from_numpy(codes_rev).to(device)
@@ -138,9 +146,9 @@ def find_overlap_candidates_device(
     verify: bool = True,
     device: Optional[torch.device] = None,
 ):
-    """Candidate generation by the sort-join on `device` (the CPU when
-    None); returns the SFO array of the reference's function on the same
-    inputs, bit for bit."""
+    """Candidate generation by the sort-join on `device` (None: the torch
+    backend's device, parallel/devices.py:default_device); returns the SFO
+    array of the reference's function on the same inputs, bit for bit."""
     n = len(seqs)
     lens = np.array([len(s) for s in seqs], dtype=np.int64)
     if n == 0:
@@ -153,8 +161,10 @@ def find_overlap_candidates_device(
         codes_fwd[i, :len(s)] = s
         codes_rev[i, :len(s)] = revcomp_codes(s)
 
+    if device is None:
+        device = default_device()
     qa, tb, sh, rev = join_candidates(codes_fwd, codes_rev, min(k, 15), expand,
-                                      max_group, device or "cpu")
+                                      max_group, device)
 
     # frame mapping + canonicalization (same algebra as the host engine)
     la = lens[qa]

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..core.reads import N_CODE, PAD_CODE
+from ..parallel.devices import default_device
 from .kernels import score_tasks_cuda
 
 RECHECK_MARGIN = 2e-3  # |score - threshold| below this -> redo in f64
@@ -231,6 +232,22 @@ def segment_tasks(row_a, row_b, pos, L):
     return s_rowa, s_rowb, s_posa, s_bolen, bounds
 
 
+def lane_p(a_w: torch.Tensor, b_w: torch.Tensor):
+    """Per lane of int32 words code | qual << 3: (p, match, called). p is
+    the reference's f32 probability that both bases were read from one
+    haplotype, in the operation order the kernels' lane_p (csrc/
+    lane_p.cuh) pins; match, whether the codes agree; called, whether
+    neither code is N or pad."""
+    a, b = a_w & 7, b_w & 7
+    p1 = torch.exp((a_w >> 3).to(torch.float32) * (-LOG10_OVER_10))
+    p2 = torch.exp((b_w >> 3).to(torch.float32) * (-LOG10_OVER_10))
+    match = a == b
+    p_match = (1.0 - p1) * (1.0 - p2) + (p1 * p2) * (1.0 / 3.0)
+    p_mis = ((p1 * (1.0 - p2) + p2 * (1.0 - p1)) * (1.0 / 3.0)
+             + (2.0 / 9.0) * (p1 * p2))
+    return torch.where(match, p_match, p_mis), match, (a < N_CODE) & (b < N_CODE)
+
+
 def segment_scores_torch(comb: torch.Tensor, rowa: torch.Tensor,
                          rowb: torch.Tensor, posa: torch.Tensor,
                          bolen: torch.Tensor, mismatch_thresh: float):
@@ -254,15 +271,8 @@ def segment_scores_torch(comb: torch.Tensor, rowa: torch.Tensor,
         b_idx = torch.clamp((k * SEG)[:, None] + col, max=rw - 1)
         a_w = flat[rowa[s:e].to(torch.int64)[:, None] * rw + a_idx].to(torch.int32)
         b_w = flat[rowb[s:e].to(torch.int64)[:, None] * rw + b_idx].to(torch.int32)
-        a, b = a_w & 7, b_w & 7
-        cm = (col < lt[:, None]) & (a < N_CODE) & (b < N_CODE)
-        p1 = torch.exp((a_w >> 3).to(torch.float32) * (-LOG10_OVER_10))
-        p2 = torch.exp((b_w >> 3).to(torch.float32) * (-LOG10_OVER_10))
-        match = a == b
-        p_match = (1.0 - p1) * (1.0 - p2) + (p1 * p2) * (1.0 / 3.0)
-        p_mis = ((p1 * (1.0 - p2) + p2 * (1.0 - p1)) * (1.0 / 3.0)
-                 + (2.0 / 9.0) * (p1 * p2))
-        p = torch.where(match, p_match, p_mis)
+        p, match, called = lane_p(a_w, b_w)
+        cm = (col < lt[:, None]) & called
         outs[0].append(torch.where(cm, torch.log(p), 0.0).sum(dim=1))
         outs[1].append(cm.sum(dim=1, dtype=torch.int32))
         outs[2].append((cm & ~match).sum(dim=1, dtype=torch.int32))
@@ -361,10 +371,14 @@ def score_tasks_torch(
     pos: np.ndarray,
     mismatch_thresh: float = 0.0,
     min_read_len: int = 0,
-    device="cpu",
+    device=None,
 ) -> TaskScores:
-    """Score tasks on `device` (a TaskScores of numpy arrays). On a CUDA
-    device the kernel runs or this raises; it never falls back to the CPU."""
+    """Score tasks on `device` (None: the torch backend's device,
+    parallel/devices.py:default_device), a TaskScores of numpy arrays. On a
+    CUDA device the kernel runs or this raises; it never falls back to the
+    CPU."""
+    if device is None:
+        device = default_device()
     device = check_device(device)
     if len(row_a) == 0:
         return _empty_scores()

@@ -17,7 +17,7 @@ ord='2'. This reproduces all 16 reference cases exactly.
 
 Backends: torch (the hand-written kernel on the CUDA device, its plain
 PyTorch version on the CPU; over every card of the process through
-parallel/mesh.py when default_devices() names more than one), native (the
+parallel/mesh.py when default_mesh() names more than one), native (the
 C++ host engine) and numpy (the f64 oracle). The torch and native scores
 go through the same clamp, exact mismatch rates and per-task and
 per-overlap f64 rechecks at their margins.
@@ -29,7 +29,6 @@ import threading
 from typing import NamedTuple, Tuple
 
 import numpy as np
-import torch
 
 from ..core.reads import PackedUnits, ReadStore
 from ..parallel import mesh
@@ -318,13 +317,6 @@ def _count(backend: str, n: int) -> None:
         BACKEND_COUNTS[backend] += n
 
 
-def scoring_device() -> torch.device:
-    """The device the torch backend scores on."""
-    if torch.cuda.is_available():
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
-
-
 def verify_overlaps(
     store: ReadStore,
     packed: PackedUnits,
@@ -364,7 +356,7 @@ def verify_overlaps(
         if ts is not None:
             _count("native", n_tasks)
     elif s.backend == "torch":
-        devices = mesh.default_devices()
+        devices = mesh.default_mesh()
         if len(devices) > 1:
             _count("mesh", n_tasks)
             ts = mesh.sharded_score_tasks(*args, **kw, devices=devices)

@@ -1,1 +1,2 @@
-from .mesh import default_devices, device_count, sharded_score_tasks
+"""Work over several devices (mesh.py) and several processes
+(distributed.py), and the choice of device (devices.py)."""

@@ -24,12 +24,12 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
-import torch
 
 from ..core.reads import ReadStore
 from ..io.sfo import sfo_to_overlaps
 from ..io.subreads import SubreadDict
 from ..ops.kmer import find_overlap_candidates
+from ..parallel.devices import on_card
 from ..utils.config import Settings
 from ..assemble.iteration import run_iteration
 from ..io.overlaps import empty_overlaps
@@ -113,10 +113,13 @@ def _device_candidates_ok(min_overlap_len: int, sfo_err: float, n: int) -> bool:
 
 def _resolve_engine(engine: str, min_overlap_len: int, sfo_err: float,
                     n: int) -> str:
-    if engine == "device" or (engine == "auto"
+    """The device join when named; under "auto", when it provably agrees
+    with the host engine and the torch backend runs on a card (the
+    reference's rule: the join goes to the device only on an
+    accelerator)."""
+    if engine == "device" or (engine == "auto" and on_card()
                               and _device_candidates_ok(min_overlap_len, sfo_err, n)):
-        if engine == "device" or torch.cuda.is_available():
-            return "device"
+        return "device"
     return "host"
 
 
@@ -124,15 +127,13 @@ def single_end_candidates(store: ReadStore, min_overlap_len: int, sfo_err: float
                           k: int = 20, engine: str = "host") -> np.ndarray:
     seqs = [store.unit_codes(store.unit1[i]) for i in range(len(store))]
     if _resolve_engine(engine, min_overlap_len, sfo_err, len(seqs)) == "device":
-        # the torch sort-join on the scoring device, at its default k=15;
-        # identical verified output to the host engine (k=20) for exact
-        # passes (see _device_candidates_ok)
+        # the torch sort-join on the torch backend's device, at its default
+        # k=15; identical verified output to the host engine (k=20) for
+        # exact passes (see _device_candidates_ok)
         from ..ops.kmer_device import find_overlap_candidates_device
-        from ..ops.verify import scoring_device
 
         sfo = find_overlap_candidates_device(
-            seqs, min_overlap_len=min_overlap_len, error_rate=sfo_err,
-            verify=True, device=scoring_device())
+            seqs, min_overlap_len=min_overlap_len, error_rate=sfo_err, verify=True)
     else:
         # Seed density: the initial read-scale join (thousands of sequences,
         # S = m-k+1 >> 80 shared k-mers per true overlap) safely uses

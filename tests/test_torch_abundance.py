@@ -16,6 +16,8 @@ from haploconduct_torch.ops.abundance import _em_torch, estimate_abundance
 from haploconduct_torch.utils.log import PhaseTimer
 from haploconduct_torch.workflows.savage import _freq_filter
 
+from torch_helpers import torch_on_cpu  # noqa: F401  (autouse)
+
 
 def _random_seq(rng, n):
     return "".join("ACGT"[b] for b in rng.integers(0, 4, n))

@@ -1,8 +1,11 @@
-"""The hand-written CUDA scoring kernel on the card, against its plain
-PyTorch version (score_tasks_plain, on the same card) and the f64 oracle:
+"""The hand-written CUDA kernels on the card, against their plain PyTorch
+versions on the same card. The scoring kernel (and the f64 oracle):
 integer columns equal; sum_log within rtol 1e-4 / atol 1e-3 of the plain
 version (both add f32 segment sums of at most 512 lanes in f64, in other
-orders within a segment). Every test here needs a CUDA card and skips
+orders within a segment). The join_verify kernel: the zero pattern of the
+slot scores equal (decided by exact integers), scores within 1e-5 (f32
+sums of log p in other orders), the slot count equal but for slots within
+1e-5 of the threshold. Every test here needs a CUDA card and skips
 without one. This file imports no jax, so on a machine without jax run it
 alone, past the root conftest:
 
@@ -14,9 +17,11 @@ import pytest
 import torch
 
 from haploconduct_torch.ops import kernels
+from haploconduct_torch.ops.join_verify import join_verify_plain, kmer_queries
+from haploconduct_torch.ops.kmer_device import kmer_hashes, kmer_table
 from haploconduct_torch.ops.score import (pack_for_device, score_tasks_numpy,
                                           score_tasks_plain, score_tasks_torch)
-from haploconduct_torch.parallel.mesh import sharded_score_tasks
+from haploconduct_torch.parallel.mesh import sharded_assembly_step, sharded_score_tasks
 
 from torch_helpers import (cuda_device, far_threshold, random_matrix,  # noqa: F401
                            random_tasks)
@@ -120,3 +125,80 @@ def test_sharded_score_tasks_on_cards_matches_one_call(cuda_device, shape):
             assert kernels.score_tasks_cuda.launches == before + len(devices)
             for name in one._fields:
                 np.testing.assert_array_equal(getattr(got, name), getattr(one, name))
+
+
+JOIN_SHAPES = {
+    # (rows, width, shortest row, genome length, phreds, rows the CPU checks)
+    "reads_150": (6000, 150, 120, 20_000, (20, 40), 400),
+    "contigs_2kb": (240, 2000, 800, 30_000, (20, 40), 6),
+    # phreds above the kernel's table take its inline branch
+    "reads_quals_to_255": (2000, 150, 120, 8_000, (2, 255), 400),
+}
+JOIN_KW = dict(expand=8, min_overlap_len=30, edge_threshold=0.97)
+
+
+def join_case(shape, device, k=13):
+    """Rows cut from a random genome (so they share k-mers), a few N
+    bases, random phreds; the kernel's inputs over every row."""
+    R, W, lmin, genome_len, (qmin, qmax), _ = JOIN_SHAPES[shape]
+    rng = np.random.default_rng(21)
+    genome = rng.integers(0, 4, genome_len).astype(np.int8)
+    lens = rng.integers(lmin, W + 1, R).astype(np.int32)
+    codes = np.full((R, W), 5, np.int8)
+    quals = np.zeros((R, W), np.uint8)
+    for i, n in enumerate(lens):
+        start = int(rng.integers(0, genome_len - n + 1))
+        codes[i, :n] = genome[start:start + n]
+        quals[i, :n] = rng.integers(qmin, qmax + 1, n)
+    codes[(rng.random((R, W)) < 0.002) & (codes < 4)] = 4
+    comb = pack_for_device(codes, quals, device)
+    nk = W - k + 1
+    tkey, t_rid, t_pos = kmer_table(kmer_hashes(comb[:, :W] & 7, k).reshape(-1), nk)
+    left, count = kmer_queries(comb, W, k, tkey, 0, R)
+    lens_d = torch.from_numpy(lens).to(device)
+    return (codes, quals, lens), (comb, lens_d, t_rid, t_pos, left, count, 0, nk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(JOIN_SHAPES))
+def test_join_verify_matches_plain_on_card(cuda_device, shape):
+    _, args = join_case(shape, cuda_device)
+    kw = JOIN_KW
+    before = kernels.join_verify_cuda.launches
+    got = kernels.join_verify_cuda(*args, kw["expand"], kw["min_overlap_len"],
+                                   kw["edge_threshold"])
+    want = join_verify_plain(*args, kw["expand"], kw["min_overlap_len"],
+                             kw["edge_threshold"])
+    torch.cuda.synchronize()
+    assert kernels.join_verify_cuda.launches == before + 1
+    gs, ws = got[0].cpu().numpy(), want[0].cpu().numpy()
+    np.testing.assert_array_equal(gs == 0, ws == 0)
+    np.testing.assert_allclose(gs, ws, rtol=0, atol=1e-5)
+    near = int(np.sum(np.abs(ws - kw["edge_threshold"]) < 1e-5))
+    assert abs(int(got[1]) - int(want[1])) <= near
+    assert int(want[1]) > 0 and np.any(ws == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["reads_150", "contigs_2kb"])
+def test_sharded_assembly_step_on_cards(cuda_device, shape):
+    """One launch a shard; two shards on one card, and every visible card
+    when there are several, give one device's scores bit for bit; the CPU
+    (the plain version) agrees to the stated tolerance."""
+    (codes, quals, lens), _ = join_case(shape, cuda_device)
+    kw = dict(JOIN_KW, k=13)
+    one = sharded_assembly_step([cuda_device], codes, quals, lens, **kw)
+    lists = [[cuda_device, cuda_device]]
+    if torch.cuda.device_count() > 1:
+        lists.append([torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+    for devices in lists:
+        before = kernels.join_verify_cuda.launches
+        got = sharded_assembly_step(devices, codes, quals, lens, **kw)
+        assert kernels.join_verify_cuda.launches == before + len(devices)
+        np.testing.assert_array_equal(got[0], one[0])
+        assert got[1] == one[1]
+    n = JOIN_SHAPES[shape][-1]  # the CPU's plain version checks the first rows
+    cpu = sharded_assembly_step([torch.device("cpu")], codes[:n], quals[:n], lens[:n], **kw)
+    part = sharded_assembly_step([cuda_device], codes[:n], quals[:n], lens[:n], **kw)
+    np.testing.assert_array_equal(part[0] == 0, cpu[0] == 0)
+    np.testing.assert_allclose(part[0], cpu[0], rtol=0, atol=1e-5)

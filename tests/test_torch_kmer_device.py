@@ -16,6 +16,7 @@ from haploconduct_torch.ops.kmer_device import find_overlap_candidates_device
 from haploconduct_torch.workflows.polyte import single_end_candidates
 
 from torch_helpers import make_store, port_store
+from torch_helpers import torch_on_cpu  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -31,12 +31,13 @@ from haploconduct_torch.assemble.stages import StageParams, run_stage
 from haploconduct_torch.ops.score import score_tasks_torch
 from haploconduct_torch.ops.verify import BACKEND_COUNTS
 from haploconduct_torch.ops.verify import verify_overlaps as port_verify
-from haploconduct_torch.parallel import distributed, mesh
-from haploconduct_torch.parallel import sharded_score_tasks
+from haploconduct_torch.parallel import devices, distributed, mesh
+from haploconduct_torch.parallel.mesh import sharded_score_tasks
 from haploconduct_torch.utils.config import Settings as PortSettings
 
 from test_score import build_random_store, random_overlaps
 from torch_helpers import port_store
+from torch_helpers import torch_on_cpu  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHARDS = [2, 3]
@@ -142,26 +143,37 @@ def test_shard_bounds_balance_lanes():
 
 
 def test_default_devices_rank_own_card_under_process_group(monkeypatch):
-    """Without a card: the CPU. One process: every visible card. A process
-    group of more than one rank: the rank's own card only, so ranks that
-    verify different streams never shard over each other's cards."""
+    """The CPU only when asked (HC_TORCH_DEVICE=cpu), card or not; without
+    a card and unasked, an error that names how to ask. One process: every
+    visible card. A process group of more than one rank: the rank's own
+    card only, so ranks that verify different streams never shard over
+    each other's cards."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert mesh.default_devices() == [torch.device("cpu")]
+    assert devices.default_devices() == [torch.device("cpu")]
+    monkeypatch.delenv("HC_TORCH_DEVICE")
+    with pytest.raises(RuntimeError, match="HC_TORCH_DEVICE=cpu"):
+        devices.default_devices()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 2)
-    assert mesh.default_devices() == [torch.device("cuda", i) for i in range(4)]
-    assert mesh.device_count() == 4
+    assert devices.default_devices() == [torch.device("cuda", i) for i in range(4)]
+    assert mesh.default_mesh() == devices.default_devices()
+    assert devices.default_device() == torch.device("cuda", 0)
     monkeypatch.setattr(distributed, "process_count", lambda: 2)
-    assert mesh.default_devices() == [torch.device("cuda", 2)]
-    assert mesh.device_count() == 1
+    assert devices.default_devices() == [torch.device("cuda", 2)]
+    assert mesh.make_mesh() == [torch.device("cuda", 2)]
+    monkeypatch.setenv("HC_TORCH_DEVICE", "cpu")
+    assert devices.default_devices() == [torch.device("cpu")]
+    monkeypatch.setenv("HC_TORCH_DEVICE", "tpu")
+    with pytest.raises(ValueError, match="HC_TORCH_DEVICE"):
+        devices.default_devices()
 
 
 @pytest.mark.parametrize("k", SHARDS)
 @pytest.mark.parametrize("thresholds", [(0.5, 0.2), (0.05, 0.04)])
 def test_verify_overlaps_routes_through_mesh(k, thresholds, monkeypatch):
     """Mirror of tests/test_mesh.py:test_verify_overlaps_routes_through_mesh:
-    the torch backend goes through the mesh when default_devices() names
+    the torch backend goes through the mesh when default_mesh() names
     more than one device, and decides as the JAX package's mesh route.
     The mirror's thresholds (0.5, 0.2) accept no edge on these random
     reads; (0.05, 0.04) accept some and sit among the scores."""
@@ -171,7 +183,7 @@ def test_verify_overlaps_routes_through_mesh(k, thresholds, monkeypatch):
     ov = random_overlaps(rng, store, 120)
     kw = dict(edge_threshold=thresholds[0], ov_threshold=thresholds[1])
     want = ref_verify(store, packed, ov, Settings(backend="jax", exact=True, **kw))
-    monkeypatch.setattr(mesh, "default_devices", lambda: cpus(k))
+    monkeypatch.setattr(mesh, "default_mesh", lambda: cpus(k))
     before = dict(BACKEND_COUNTS)
     pstore = port_store(store)
     got = port_verify(pstore, pstore.pack(), ov,
@@ -222,7 +234,7 @@ def test_full_stage_mesh_byte_identical(k, stage_case, monkeypatch):
     run_stage through the port's mesh route gives the JAX package's mesh
     stage, contig for contig, byte for byte."""
     store, ov, kw, want = stage_case
-    monkeypatch.setattr(mesh, "default_devices", lambda: cpus(k))
+    monkeypatch.setattr(mesh, "default_mesh", lambda: cpus(k))
     before = BACKEND_COUNTS["mesh"]
     res = run_stage(StageParams(backend="torch", **kw), port_store(store), ov)
     assert BACKEND_COUNTS["mesh"] > before
@@ -248,7 +260,7 @@ GLOO_WORKER = textwrap.dedent("""
 
     assert distributed.maybe_initialize() and distributed.process_count() == 2
     rank = distributed.process_index()
-    assert mesh.default_devices() == [torch.device("cpu")]
+    assert mesh.default_mesh() == [torch.device("cpu")]
     collectives = []
     for name in ("all_gather_object", "all_gather", "all_reduce", "broadcast",
                  "broadcast_object_list", "barrier", "gather", "scatter",
@@ -318,7 +330,8 @@ def test_two_process_gloo_scorer_and_stage(tmp_path):
     for rank in range(2):
         env = dict(os.environ, PYTHONPATH=REPO, RANK=str(rank), WORLD_SIZE="2",
                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                   CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+                   CUDA_VISIBLE_DEVICES="", HC_TORCH_DEVICE="cpu",
+                   OMP_NUM_THREADS="1")
         procs.append(subprocess.Popen([sys.executable, str(worker), str(outs[rank])],
                                       env=env, cwd=REPO, stdout=subprocess.PIPE,
                                       stderr=subprocess.PIPE))

@@ -22,6 +22,7 @@ from haploconduct_torch.workflows.polyte import PolyteConfig, run_polyte
 from haploconduct_torch.workflows.savage import SavageConfig, run_savage
 
 from torch_helpers import make_store, port_store
+from torch_helpers import torch_on_cpu  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True, scope="module")

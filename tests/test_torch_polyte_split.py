@@ -25,6 +25,7 @@ from haploconduct_torch.workflows.polyte_split import (PolyteSplitConfig,
                                                        run_polyte_split)
 
 from torch_helpers import port_store
+from torch_helpers import torch_on_cpu  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -177,7 +178,8 @@ def test_polyte_split_runs_with_jax_unimportable(split_case, tmp_path):
     script.write_text(JAX_FREE % {"tests": os.path.join(REPO, "tests")})
     proc = subprocess.run(
         [sys.executable, str(script), str(tmp_path / "ref.fasta")],
-        env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"), cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO, HC_TORCH_DEVICE="cpu",
+                 OMP_NUM_THREADS="1"), cwd=REPO,
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.splitlines() == final_contigs(got)
@@ -219,7 +221,8 @@ def test_two_process_gloo_polyte_split_matches_single(split_case, tmp_path):
     for rank in range(2):
         env = dict(os.environ, PYTHONPATH=REPO, RANK=str(rank), WORLD_SIZE="2",
                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                   CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+                   CUDA_VISIBLE_DEVICES="", HC_TORCH_DEVICE="cpu",
+                   OMP_NUM_THREADS="1")
         procs.append(subprocess.Popen(
             [sys.executable, str(worker), str(outs[rank]),
              str(tmp_path / f"ref{rank}.fasta")],

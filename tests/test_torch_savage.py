@@ -23,6 +23,7 @@ from haploconduct_torch.workflows.savage import SavageConfig, run_savage
 
 from torch_helpers import (dryrun_overlaps, dryrun_store, make_store,
                            multi_strain_reads, port_store)
+from torch_helpers import torch_on_cpu  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -168,7 +169,7 @@ JAX_FREE = textwrap.dedent("""
 def test_stage_runs_with_jax_unimportable():
     """The root conftest imports jax, so only a fresh process can show the
     port's stage never needs it."""
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, HC_TORCH_DEVICE="cpu")
     proc = subprocess.run(
         [sys.executable, "-c", JAX_FREE % {"tests": os.path.join(REPO, "tests")}],
         env=env, cwd=REPO, capture_output=True, text=True, timeout=300)
@@ -216,7 +217,7 @@ def test_two_process_gloo_savage_matches_single(tmp_path):
     for rank in range(2):
         env = dict(os.environ, PYTHONPATH=REPO, RANK=str(rank), WORLD_SIZE="2",
                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                   CUDA_VISIBLE_DEVICES="")
+                   CUDA_VISIBLE_DEVICES="", HC_TORCH_DEVICE="cpu")
         procs.append(subprocess.Popen([sys.executable, str(worker), str(outs[rank])],
                                       env=env, cwd=REPO, stdout=subprocess.PIPE,
                                       stderr=subprocess.PIPE))

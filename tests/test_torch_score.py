@@ -30,6 +30,7 @@ from haploconduct_torch.ops.score import (pack_for_device, score_tasks,
 
 from test_score import build_random_store, random_overlaps
 from torch_helpers import far_threshold, random_matrix, random_tasks, subtask_columns
+from torch_helpers import torch_on_cpu  # noqa: F401  (autouse)
 
 # (R, W, min row length, tasks, slack of pos below len_a, lowest row_a)
 SHAPES = {

@@ -21,6 +21,7 @@ from haploconduct_torch.core.arrays import store_from_arrays
 from haploconduct_torch.core.reads import ReadStore
 
 from torch_helpers import dryrun_store, make_store, port_store, store_arrays
+from torch_helpers import torch_on_cpu  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "haploconduct_torch"
@@ -81,7 +82,7 @@ def test_no_module_imports_the_reference_or_jax():
 def _run_refused(body: str, *args, timeout=600):
     script = REFUSE % {"refused": REFUSED, "repo": str(REPO)} + textwrap.dedent(body)
     env = {k: v for k, v in os.environ.items() if k != "HC_NO_MALLOC_TUNE"}
-    env.update(CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    env.update(CUDA_VISIBLE_DEVICES="", HC_TORCH_DEVICE="cpu", OMP_NUM_THREADS="1")
     return subprocess.run([sys.executable, "-c", script, *args], env=env,
                           cwd=REPO, capture_output=True, text=True, timeout=timeout)
 

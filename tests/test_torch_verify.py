@@ -20,6 +20,7 @@ from haploconduct_torch.utils.config import Settings as PortSettings
 
 from test_score import build_random_store, random_overlaps
 from torch_helpers import port_store
+from torch_helpers import torch_on_cpu  # noqa: F401  (autouse)
 
 
 def verify_overlaps(store, packed, ov, s):

@@ -15,6 +15,16 @@ from haploconduct_tpu.utils.simulate import (
 from haploconduct_torch.core.arrays import store_from_arrays
 
 
+@pytest.fixture(autouse=True, scope="module")
+def torch_on_cpu():
+    """The torch backend runs on the CPU only when asked (HC_TORCH_DEVICE=cpu,
+    the counterpart of the reference tests' JAX_PLATFORMS=cpu): every test
+    module that runs it imports this fixture, which asks for the module."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HC_TORCH_DEVICE", "cpu")
+        yield
+
+
 @pytest.fixture
 def cuda_device():
     """The CUDA card, or a skip where there is none (decided at run time,
