@@ -56,7 +56,8 @@ Phases (each prints a line; any failure exits non-zero):
      the join_verify kernel against its plain version on every query row
      (zero pattern equal, scores within 1e-5, slot counts equal but for
      slots within 1e-5 of the threshold), then the kernel's and the plain
-     version's times and the bound.
+     version's times and the bound, and the valid slots beside the distinct
+     diagonals the kernel scored (a row's tiles) and their lanes.
 
 Phase 4 also prints the stage c contigs' genome fraction and mismatch rate
 against the four strains (workflows/evaluate.py); no check reads them. The
@@ -546,7 +547,7 @@ def phase_dryrun_steps(torch, device_lists):
         codes, quals, lens, row_a, row_b, pos = tiny_workload(n_tasks=32 * len(devices))
         tasks = (codes, quals, lens, row_a, row_b, pos)
         # step 2: the sharded scorer on an explicit task stream
-        ts = mesh.sharded_score_tasks(*tasks, devices=devices)
+        ts = mesh.sharded_score_tasks(*tasks, mesh=devices)
         one = score_tasks_torch(*tasks, device=devices[0])
         if ts.score.shape != row_a.shape or any(
                 not np.array_equal(getattr(ts, c), getattr(one, c)) for c in one._fields):
@@ -641,26 +642,67 @@ def step_bound(torch, comb, lens, t_rid, t_pos, left, count, nk, expand):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), lanes
 
 
-def measure_join_verify(torch, inputs, one, card0):
-    """Phase 10 (b), after the main path's launches are read: the kernel
-    against its plain version on every query row of the patch, then both
-    timed, beside the bound. `one` is the main path's one-device result,
-    which the kernel's output must equal bit for bit."""
-    from haploconduct_torch.ops.join_verify import join_verify_plain, kmer_queries
-    from haploconduct_torch.ops.kernels import join_verify_cuda
+def diagonal_counts(torch, lens, t_rid, t_pos, left, count, nk, expand, tile=None):
+    """The valid slots of a join over every row (row0 = 0), and the
+    distinct diagonals (r, rb, shift) among them with their lanes
+    (min(len[r] - shift, len[rb]) each), counted within each tile of
+    `tile` consecutive slots of a row (None: the whole row), as the
+    join_verify kernel scores them."""
+    from haploconduct_torch.ops.join_verify import slot_diagonals
+
+    n, R = left.shape[0], lens.numel()
+    per_row = nk * expand
+    n_tiles = 1 if tile is None else -(-per_row // tile)
+    rows_per = max(1, (1 << 22) // nk)
+    lens64 = lens.long()
+    slot = (torch.arange(nk, device=left.device)[:, None] * expand
+            + torch.arange(expand, device=left.device))
+    tile_of = torch.zeros_like(slot) if tile is None else torch.div(
+        slot, tile, rounding_mode="floor")
+    valid_n = diags = lanes = 0
+    for r0 in range(0, n // nk, rows_per):
+        q = torch.arange(r0 * nk, min((r0 + rows_per) * nk, n), device=left.device)
+        r, rb, shift, valid = slot_diagonals(t_rid, t_pos, left, count, q, 0, nk, expand)
+        tiles = r[:, None] * n_tiles + tile_of.repeat(len(q) // nk, 1)
+        key = torch.unique(((tiles * R + rb) * nk + shift)[valid])
+        shift, rest = key % nk, torch.div(key, nk, rounding_mode="floor")
+        rb, r = rest % R, torch.div(rest, R * n_tiles, rounding_mode="floor")
+        valid_n += int(valid.sum())
+        diags += key.numel()
+        lanes += int(torch.minimum(lens64[r] - shift, lens64[rb]).clamp(min=0).sum())
+    return valid_n, diags, lanes
+
+
+def join_inputs_on_card(torch, inputs, card0):
+    """The join_verify kernel's arguments for a join of every row of
+    `inputs` (codes, quals, lens) on card0, with JOIN_KW."""
+    from haploconduct_torch.ops.join_verify import kmer_queries
     from haploconduct_torch.ops.kmer_device import kmer_hashes, kmer_table
     from haploconduct_torch.ops.score import pack_for_device
 
     codes, quals, lens = inputs
     R, W = codes.shape
-    k, expand = JOIN_KW["k"], JOIN_KW["expand"]
+    k = JOIN_KW["k"]
     nk = W - k + 1
     comb = pack_for_device(codes, quals, card0)
-    lens_d = torch.from_numpy(lens).to(card0)
     tkey, t_rid, t_pos = kmer_table(kmer_hashes(comb[:, :W] & 7, k).reshape(-1), nk)
     left, count = kmer_queries(comb, W, k, tkey, 0, R)
-    full = (comb, lens_d, t_rid, t_pos, left, count, 0, nk, expand,
-            JOIN_KW["min_overlap_len"], JOIN_KW["edge_threshold"])
+    return (comb, torch.from_numpy(lens).to(card0), t_rid, t_pos, left, count, 0, nk,
+            JOIN_KW["expand"], JOIN_KW["min_overlap_len"], JOIN_KW["edge_threshold"])
+
+
+def measure_join_verify(torch, inputs, one, card0):
+    """Phase 10 (b), after the main path's launches are read: the kernel
+    against its plain version on every query row of the patch, then both
+    timed, beside the bound, and the slots and distinct diagonals the
+    kernel scored. `one` is the main path's one-device result, which the
+    kernel's output must equal bit for bit."""
+    from haploconduct_torch.ops.join_verify import TILE_SLOTS, join_verify_plain
+    from haploconduct_torch.ops.kernels import join_verify_cuda
+
+    R = inputs[0].shape[0]
+    full = join_inputs_on_card(torch, inputs, card0)
+    comb, lens_d, t_rid, t_pos, left, count, _, nk, expand = full[:9]
     got = [t.cpu().numpy() for t in join_verify_cuda(*full)]
     want = [t.cpu().numpy() for t in join_verify_plain(*full)]
     err = check_step((got[0], int(got[1][0])), (want[0], int(want[1][0])),
@@ -676,7 +718,14 @@ def measure_join_verify(torch, inputs, one, card0):
     log(f"[join_verify] kernel vs plain on all {R} query rows ({R * nk} queries, "
         f"{lanes} lanes): zero pattern equal, max_abs_err={err:.3g}; "
         f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f} ({bound_by})")
-    del comb, tkey, t_rid, t_pos, left, count, full
+    counts = (torch, lens_d, t_rid, t_pos, left, count, nk, expand)
+    valid, diags, diag_lanes = diagonal_counts(*counts, tile=TILE_SLOTS)
+    _, row_diags, _ = diagonal_counts(*counts)
+    log(f"[join_verify] {valid} valid slots of {R * nk * expand}: the kernel scored "
+        f"{diags} distinct diagonals ({diag_lanes} lanes, against the {lanes} lanes of "
+        f"the valid slots) in tiles of {TILE_SLOTS} slots of a row; {row_diags} "
+        f"distinct a row, so the tiles left {diags - row_diags} repeats")
+    del comb, t_rid, t_pos, left, count, full
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
@@ -700,11 +749,11 @@ def phase_mesh_stream(torch, reps=3):
     calls = {"one call": lambda th: score_tasks_torch(*args, mismatch_thresh=th,
                                                       device=card0),
              "2 shards on card 0": lambda th: mesh.sharded_score_tasks(
-                 *args, mismatch_thresh=th, devices=[card0, card0])}
+                 *args, mismatch_thresh=th, mesh=[card0, card0])}
     if torch.cuda.device_count() > 1:
         cards = mesh.default_mesh()
         calls[f"{len(cards)} cards"] = lambda th: mesh.sharded_score_tasks(
-            *args, mismatch_thresh=th, devices=cards)
+            *args, mismatch_thresh=th, mesh=cards)
     for th in (0.0, far_threshold()):
         one = calls["one call"](th)
         for name, call in calls.items():

@@ -19,7 +19,10 @@ rejection and no minimum read length, as in the reference's step.
 ops/kernels.py:join_verify_cuda) on a CUDA tensor and runs the plain
 version `join_verify_plain` on a CPU tensor; there is no fallback. The
 two sum log p in other orders: scores agree within 1e-5, the zero pattern
-(decided by exact integers) exactly.
+(decided by exact integers) exactly. A slot's score depends on its
+diagonal (r, rb, shift) alone (`slot_diagonals`), so the kernel scores
+each distinct diagonal among a tile of TILE_SLOTS slots of a row once and
+hands its score to every slot on it; the plain version scores every slot.
 """
 
 from __future__ import annotations
@@ -31,6 +34,9 @@ from .kernels import join_verify_cuda
 from .kmer_device import kmer_hashes
 from .score import lane_p
 
+# slots of one query row the kernel deduplicates together
+# (csrc/join_verify.cu:kTileSlots)
+TILE_SLOTS = 2048
 # (query, slot, lane) elements per step of the plain version: its int64
 # and f32 temporaries stay at a few hundred MB
 PLAIN_LANES = 1 << 24
@@ -68,31 +74,45 @@ def kmer_queries(comb: torch.Tensor, w: int, k: int, tkey: torch.Tensor,
     return left.to(torch.int32), count.to(torch.int32)
 
 
+def slot_diagonals(t_rid: torch.Tensor, t_pos: torch.Tensor, left: torch.Tensor,
+                   count: torch.Tensor, q: torch.Tensor, row0: int, nk: int,
+                   expand: int):
+    """The diagonals of the slots of query k-mers q (int64 indices into
+    left and count, of rows row0 + q // nk): the query row r (len(q),)
+    and, per slot (len(q), expand), the partner row rb, the shift and
+    whether the slot is valid. A slot's score depends on (r, rb, shift)
+    alone."""
+    d = torch.arange(expand, device=q.device)
+    r = row0 + torch.div(q, nk, rounding_mode="floor")
+    t = torch.clamp(left[q].to(torch.int64)[:, None] + d, max=t_rid.shape[0] - 1)
+    rb = t_rid[t].to(torch.int64)
+    shift = (q % nk)[:, None] - t_pos[t].to(torch.int64)
+    valid = (d < count[q][:, None]) & (rb != r[:, None]) & (shift >= 0)
+    return r, rb, shift, valid
+
+
 def join_verify_plain(comb: torch.Tensor, lens: torch.Tensor, t_rid: torch.Tensor,
                       t_pos: torch.Tensor, left: torch.Tensor, count: torch.Tensor,
                       row0: int, nk: int, expand: int, min_overlap_len: int,
                       edge_threshold: float):
     """Plain PyTorch version of the join_verify kernel, on comb's device,
     in steps of whole query k-mers: (scores (n * expand,) f32 in slot
-    order, n_edges (1,) int32). The lanes of a slot are read from its
-    clamped diagonal and masked past its length, as the reference does."""
+    order, n_edges (1,) int32). Every slot is scored on its own; the lanes
+    of a slot are read from its clamped diagonal and masked past its
+    length, as the reference does."""
     dev = comb.device
     n = left.shape[0]
     rw = comb.shape[1]
     flat = comb.reshape(-1)
     lens64 = lens.to(torch.int64)
-    d = torch.arange(expand, device=dev)
     col = torch.arange(rw, device=dev)
     per = max(1, PLAIN_LANES // (expand * rw))
     scores = []
     n_edges = torch.zeros((), dtype=torch.int64, device=dev)
     for s in range(0, n, per):
         q = torch.arange(s, min(s + per, n), device=dev)
-        r = row0 + torch.div(q, nk, rounding_mode="floor")
-        t = torch.clamp(left[q].to(torch.int64)[:, None] + d, max=t_rid.shape[0] - 1)
-        rb = t_rid[t].to(torch.int64)
-        shift = (q % nk)[:, None] - t_pos[t].to(torch.int64)
-        valid = (d < count[q][:, None]) & (rb != r[:, None]) & (shift >= 0)
+        r, rb, shift, valid = slot_diagonals(t_rid, t_pos, left, count, q, row0,
+                                             nk, expand)
         L = torch.minimum(lens64[r][:, None] - shift, lens64[rb])
         a_idx = torch.clamp(shift[..., None] + col, 0, rw - 1)
         a_w = flat[r[:, None, None] * rw + a_idx].to(torch.int32)

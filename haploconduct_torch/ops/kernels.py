@@ -191,15 +191,19 @@ def join_verify_cuda(comb: torch.Tensor, lens: torch.Tensor, t_rid: torch.Tensor
     sorted k-mer table; left, count: (n,) int32 per query k-mer of rows
     row0 .. row0 + n / nk. Returns (scores (n * expand,) f32 in slot
     order, n_edges (1,) int32). The caller guarantees every index in range
-    (ops/join_verify.py builds them). 8 lanes score each slot. The
-    kernel's table is sized by the largest phred in comb, read here on the
-    card. Raises on a refused launch."""
+    (ops/join_verify.py builds them). A block takes a query row, finds the
+    distinct diagonals among its slots and scores each once with a warp.
+    The kernel's table is sized by the largest phred in comb, read here on
+    the card. Raises on a refused launch."""
     if (not comb.is_cuda or comb.dtype != torch.int16 or comb.dim() != 2
             or not comb.is_contiguous()):
         raise ValueError("comb must be a contiguous 2-D int16 CUDA tensor")
     n = left.shape[0]
     if n % nk or row0 < 0 or row0 + n // nk > comb.shape[0]:
         raise ValueError("the queries must be whole rows of comb")
+    # a diagonal's key rb * nk + shift and a row's slot index are int32
+    if comb.shape[0] * nk >= 2**31 or nk * expand >= 2**31 - 4096:
+        raise ValueError("the join needs R * NK and NK * expand below 2^31")
     if lens.shape != (comb.shape[0],) or t_rid.shape != t_pos.shape \
             or count.shape != left.shape:
         raise ValueError("lens must be (R,), the table and query columns alike")

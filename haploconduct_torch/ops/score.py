@@ -73,6 +73,13 @@ def _phred_lut(dtype_name: str) -> np.ndarray:
     return np.power(10.0, -q / 10.0).astype(np.dtype(dtype_name))
 
 
+def phred_probs(quals: np.ndarray, dtype=np.float64) -> np.ndarray:
+    """Phred (integer, ASCII-33 already removed) -> error probability."""
+    if quals.dtype == np.uint8:
+        return _phred_lut(np.dtype(dtype).name)[quals]
+    return np.power(10.0, -quals.astype(dtype) / 10.0).astype(dtype)
+
+
 @functools.lru_cache(maxsize=1)
 def _pair_luts():
     """(p, log p) keyed by (q1, q2, match) — the same-haplotype probability

@@ -356,13 +356,12 @@ def verify_overlaps(
         if ts is not None:
             _count("native", n_tasks)
     elif s.backend == "torch":
-        devices = mesh.default_mesh()
-        if len(devices) > 1:
+        if mesh.device_count() > 1:
             _count("mesh", n_tasks)
-            ts = mesh.sharded_score_tasks(*args, **kw, devices=devices)
+            ts = mesh.sharded_score_tasks(*args, **kw)
         else:
             _count("torch", n_tasks)
-            ts = score_tasks_torch(*args, **kw, device=devices[0])
+            ts = score_tasks_torch(*args, **kw, device=mesh.default_mesh()[0])
     if ts is None:  # numpy, or the native extension is unavailable
         _count("numpy", n_tasks)
         ts = score_tasks_numpy(*args, **kw)

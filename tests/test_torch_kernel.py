@@ -5,7 +5,9 @@ version (both add f32 segment sums of at most 512 lanes in f64, in other
 orders within a segment). The join_verify kernel: the zero pattern of the
 slot scores equal (decided by exact integers), scores within 1e-5 (f32
 sums of log p in other orders), the slot count equal but for slots within
-1e-5 of the threshold. Every test here needs a CUDA card and skips
+1e-5 of the threshold, at widths of one tile a row and of several, with
+phreds past its table, rows whose slots are all invalid and a shard that
+starts past row 0. Every test here needs a CUDA card and skips
 without one. This file imports no jax, so on a machine without jax run it
 alone, past the root conftest:
 
@@ -121,7 +123,7 @@ def test_sharded_score_tasks_on_cards_matches_one_call(cuda_device, shape):
         one = score_tasks_torch(*args, mismatch_thresh=th, device=cuda_device)
         for devices in lists:
             before = kernels.score_tasks_cuda.launches
-            got = sharded_score_tasks(*args, mismatch_thresh=th, devices=devices)
+            got = sharded_score_tasks(*args, mismatch_thresh=th, mesh=devices)
             assert kernels.score_tasks_cuda.launches == before + len(devices)
             for name in one._fields:
                 np.testing.assert_array_equal(getattr(got, name), getattr(one, name))
@@ -133,7 +135,12 @@ JOIN_SHAPES = {
     "contigs_2kb": (240, 2000, 800, 30_000, (20, 40), 6),
     # phreds above the kernel's table take its inline branch
     "reads_quals_to_255": (2000, 150, 120, 8_000, (2, 255), 400),
+    # every third row all N: each of its slots is invalid
+    "all_n_rows": (2000, 150, 120, 8_000, (20, 40), 400),
+    # a shard of query rows that starts past row 0
+    "shard_row0": (2000, 150, 120, 8_000, (20, 40), 400),
 }
+SHARD_ROWS = (700, 1300)
 JOIN_KW = dict(expand=8, min_overlap_len=30, edge_threshold=0.97)
 
 
@@ -151,12 +158,15 @@ def join_case(shape, device, k=13):
         codes[i, :n] = genome[start:start + n]
         quals[i, :n] = rng.integers(qmin, qmax + 1, n)
     codes[(rng.random((R, W)) < 0.002) & (codes < 4)] = 4
+    if shape == "all_n_rows":
+        codes[::3][codes[::3] < 4] = 4
     comb = pack_for_device(codes, quals, device)
     nk = W - k + 1
     tkey, t_rid, t_pos = kmer_table(kmer_hashes(comb[:, :W] & 7, k).reshape(-1), nk)
-    left, count = kmer_queries(comb, W, k, tkey, 0, R)
+    row0, row1 = SHARD_ROWS if shape == "shard_row0" else (0, R)
+    left, count = kmer_queries(comb, W, k, tkey, row0, row1)
     lens_d = torch.from_numpy(lens).to(device)
-    return (codes, quals, lens), (comb, lens_d, t_rid, t_pos, left, count, 0, nk)
+    return (codes, quals, lens), (comb, lens_d, t_rid, t_pos, left, count, row0, nk)
 
 
 @pytest.mark.cuda
@@ -177,6 +187,9 @@ def test_join_verify_matches_plain_on_card(cuda_device, shape):
     near = int(np.sum(np.abs(ws - kw["edge_threshold"]) < 1e-5))
     assert abs(int(got[1]) - int(want[1])) <= near
     assert int(want[1]) > 0 and np.any(ws == 0)
+    if shape == "all_n_rows":
+        by_row = gs.reshape(-1, args[-1] * kw["expand"])
+        assert not np.any(by_row[::3]) and np.any(by_row[1::3])
 
 
 @pytest.mark.cuda

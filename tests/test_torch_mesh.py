@@ -1,6 +1,6 @@
 """haploconduct_torch/parallel/mesh.py against the JAX package's mesh
 (tests/test_mesh.py, on the root conftest's 8 virtual CPU devices). The
-port shards over `devices=[cpu] * k`, k = 2 and 3 so that shards are
+port shards over `mesh=[cpu] * k`, k = 2 and 3 so that shards are
 uneven; each CPU shard runs the kernel's plain version. A task is scored
 whole by one shard, so the sharded sums are bit-equal to one
 score_tasks_torch call."""
@@ -53,7 +53,7 @@ def _assert_sharded(codes, quals, lens, row_a, row_b, pos, k, thresh, mesh_ref):
     lanes = np.minimum(lens[row_a] - pos, lens[row_b])
     bounds = mesh.shard_bounds(np.where(pos >= lens[row_a], 0, lanes), k)
     assert np.all(np.diff(bounds) > 0)  # k non-empty shards
-    got = sharded_score_tasks(*args, mismatch_thresh=thresh, devices=cpus(k))
+    got = sharded_score_tasks(*args, mismatch_thresh=thresh, mesh=cpus(k))
     oracle = score_tasks_numpy(*args, mismatch_thresh=thresh)
     for name in INTS:
         np.testing.assert_array_equal(getattr(got, name), getattr(oracle, name))
@@ -114,23 +114,23 @@ def test_sharded_score_tasks_edges():
     args = multi_segment_case()
     codes, quals, lens, row_a, row_b, pos = args
     empty = sharded_score_tasks(codes, quals, lens, row_a[:0], row_b[:0], pos[:0],
-                                devices=cpus(2))
+                                mesh=cpus(2))
     assert all(len(c) == 0 for c in empty)
     got = sharded_score_tasks(codes, quals, lens, row_a[:2], row_b[:2], pos[:2],
-                              devices=cpus(5))
+                              mesh=cpus(5))
     want = score_tasks_numpy(codes, quals, lens, row_a[:2], row_b[:2], pos[:2])
     np.testing.assert_array_equal(got.counted, want.counted)
     with pytest.raises(ValueError, match="row ids"):
         sharded_score_tasks(codes, quals, lens, row_a + len(lens), row_b, pos,
-                            devices=cpus(2))
+                            mesh=cpus(2))
     with pytest.raises(ValueError, match="positions"):
         sharded_score_tasks(codes, quals, lens, row_a, row_b, pos - 10**6,
-                            devices=cpus(2))
+                            mesh=cpus(2))
     with pytest.raises(ValueError, match="device"):
-        sharded_score_tasks(*args, devices=[])
+        sharded_score_tasks(*args, mesh=[])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
-            sharded_score_tasks(*args, devices=["cpu", "cuda"])
+            sharded_score_tasks(*args, mesh=["cpu", "cuda"])
 
 
 def test_shard_bounds_balance_lanes():

@@ -18,6 +18,22 @@ scoring call (ops/score.py:score_tasks_torch; for a subtask kernel, the
 host split, upload, kernel, download and f64 reduce it needed). Both
 revisions must give the same integer columns per task.
 
+    python3 torch_ab.py join [--old-src SRC ...] [--cuts] [--reps 10]
+
+The fused join + verify kernel (csrc/join_verify.cu) against earlier
+revisions, each built from its SRC (for example `git show
+<commit>:haploconduct_torch/csrc/join_verify.cu >
+build/ab/join_verify_old.cu`, with that commit's csrc/lane_p.cuh beside
+it), both through the C interface hc_join_verify, on chip_smoke.py's
+phase 10 (b) join of the envelope patch (88,928 rows of 150, k = 13,
+expand 8), in turns (the old ones, new, new, the old ones in reverse).
+Each must give the new one's zero pattern and scores within 1e-5 of
+them (f32 sums in other orders). --cuts also times, without comparing,
+two cuts of this tree's kernel (join_cuts: the gathers and writes alone,
+and those with the hashing but no scoring), to see where its time goes.
+One JSON line: the card's name and power limit, CUDA-event ms per launch
+(median of --reps after a warm-up) and chip_smoke.py's bound.
+
     python3 torch_ab.py verify --trees A B [--pairs 3]
 
 SAVAGE a -> b -> c on chip_smoke.py's envelope patch, run by two
@@ -203,6 +219,103 @@ def kernel_ab(args) -> int:
     return 0
 
 
+# ---- join
+
+# the join kernel's tile loop, as its source marks it
+_TILE_B = "      __syncthreads();\n      // B:"
+_TILE_C = "      // C:"
+_TILE_D = "      // D:"
+_TILE_END = "      __syncthreads();\n    }\n  }\n  if (edges)"
+
+
+def join_cuts(out_dir: Path) -> list:
+    """Two cuts of csrc/join_verify.cu, written to out_dir with the
+    header beside them, for timing only: `cut_gathers` finds each slot's
+    key and writes it out (no hashing, no scoring); `cut_no_scoring`
+    hashes the keys and writes each slot's entry (no scoring)."""
+    import shutil
+
+    from haploconduct_torch.ops import kernels
+
+    src = kernels.JOIN_SRC.read_text()
+    if any(src.count(m) != 1 for m in (_TILE_B, _TILE_C, _TILE_D, _TILE_END)):
+        raise RuntimeError("the kernel's tile loop is not marked as join_cuts expects")
+    gathers = src[:src.index(_TILE_B)] + """      {
+        float* out = scores + static_cast<int64_t>(qr) * row_slots + t0;
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          const int s = i * kThreads + tid;
+          if (s < tile_n) { out[s] = __int_as_float(key[i]); edges += key[i] > 0; }
+        }
+      }
+""" + src[src.index(_TILE_END):]
+    no_scoring = (src[:src.index(_TILE_C)] + src[src.index(_TILE_D):]).replace(
+        "h >= 0 ? __int_as_float(s_key[h]) : 0.0f", "static_cast<float>(h)")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    shutil.copy(kernels.JOIN_SRC.parent / "lane_p.cuh", out_dir / "lane_p.cuh")
+    paths = []
+    for name, text in (("cut_gathers", gathers), ("cut_no_scoring", no_scoring)):
+        paths.append(out_dir / f"{name}.cu")
+        paths[-1].write_text(text)
+    return paths
+
+
+def join_ab(args) -> int:
+    import torch
+
+    import chip_smoke
+    from haploconduct_torch.ops import kernels
+
+    card = card_name()
+    card0 = torch.device("cuda", 0)
+    fns = {"new": kernels.load(kernels.JOIN_SRC)}
+    cuts = join_cuts(REPO / "build" / "ab" / "cuts") if args.cuts else []
+    for src in args.old_src + cuts:
+        fn = ctypes.CDLL(str(kernels.build(src))).hc_join_verify
+        fn.argtypes = fns["new"].argtypes
+        fn.restype = ctypes.c_int
+        fns[src.stem] = fn
+    full = chip_smoke.join_inputs_on_card(
+        torch, chip_smoke.envelope_join_inputs(chip_smoke.envelope_patch()), card0)
+    comb, lens, t_rid, t_pos, left, count, row0, nk, expand, mol, thr = full
+    n = left.shape[0]
+    max_qual = int(comb.max()) >> 3
+
+    def launch(fn):
+        scores = torch.empty(n * expand, dtype=torch.float32, device=card0)
+        n_edges = torch.zeros(1, dtype=torch.int32, device=card0)
+        err = fn(comb.data_ptr(), comb.shape[1], lens.data_ptr(), t_rid.data_ptr(),
+                 t_pos.data_ptr(), left.data_ptr(), count.data_ptr(), n, row0, nk,
+                 expand, mol, thr, max_qual, scores.data_ptr(), n_edges.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"join_verify launch failed: CUDA error {err}")
+        return scores, n_edges
+
+    new = [t.cpu().numpy() for t in launch(fns["new"])]
+    err = {}
+    for key in (src.stem for src in args.old_src):
+        old = [t.cpu().numpy() for t in launch(fns[key])]
+        err[key] = chip_smoke.check_step((new[0], int(new[1][0])),
+                                         (old[0], int(old[1][0])), thr,
+                                         f"join_verify: new against {key}")
+    del new
+    times = {key: [] for key in fns}
+    for key in list(fns)[::-1] + list(fns):
+        times[key].append(chip_smoke.cuda_ms(lambda: launch(fns[key]), args.reps))
+    bound_ms, bound_by, lanes = chip_smoke.step_bound(torch, comb, lens, t_rid, t_pos,
+                                                      left, count, nk, expand)
+    print(json.dumps({
+        "kernel": "join_verify", "card": card, "old_src": [str(p) for p in args.old_src],
+        "cuts": [p.stem for p in cuts],
+        "queries": n, "slots": n * expand, "lanes": lanes,
+        "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_diff": err,
+        "kernel_ms": {k: [round(t, 4) for t in v] for k, v in times.items()},
+        "kernel_ms_median": {k: statistics.median(v) for k, v in times.items()},
+    }), flush=True)
+    return 0
+
+
 # ---- verify
 
 RUN = r"""
@@ -275,6 +388,10 @@ def main() -> int:
     k = sub.add_parser("kernel")
     k.add_argument("--old-src", type=Path)
     k.add_argument("--reps", type=int, default=10)
+    j = sub.add_parser("join")
+    j.add_argument("--old-src", type=Path, nargs="*", default=[])
+    j.add_argument("--cuts", action="store_true")
+    j.add_argument("--reps", type=int, default=10)
     v = sub.add_parser("verify")
     v.add_argument("--trees", nargs=2, required=True, metavar=("A", "B"))
     v.add_argument("--pairs", type=int, default=3)
@@ -285,7 +402,7 @@ def main() -> int:
         print("needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
-    return kernel_ab(args) if args.cmd == "kernel" else verify_ab(args)
+    return {"kernel": kernel_ab, "join": join_ab, "verify": verify_ab}[args.cmd](args)
 
 
 if __name__ == "__main__":
