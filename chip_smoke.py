@@ -59,6 +59,19 @@ Phases (each prints a line; any failure exits non-zero):
      version's times and the bound, and the valid slots beside the distinct
      diagonals the kernel scored (a row's tiles) and their lanes.
 
+ 11. SAVAGE over several patches (torch_envelope.py, the documented
+     operating point at reduced depth): the envelope at its full width
+     (10 kb, 4 strains at 3%, 150 bp reads, 667x a patch) cut to 2 patches,
+     1,334x in all (savage_envelope_store(total_cov=1334, split_num=2)),
+     a -> b -> c with the torch backend, which must launch the scoring
+     kernel, against the native engine: byte-identical contigs in every
+     stage. With two cards or more, the same reads also go through the
+     CLI as two ranks (python -m torch.distributed.run --nproc_per_node 2
+     -m haploconduct_torch savage --split 2), patches round-robined over
+     the ranks and gathered over NCCL: every rank's stage a/b/c contigs
+     equal the one-process torch run's. With one card that part is
+     logged as not run.
+
 Phase 4 also prints the stage c contigs' genome fraction and mismatch rate
 against the four strains (workflows/evaluate.py); no check reads them. The
 inputs of phases 6-8 come from the port's copy of the repo's simulator
@@ -816,9 +829,118 @@ def phase_mesh_savage(torch, patch, want, tasks, launches):
     return mesh_launches
 
 
+PHASE11_ENVELOPE = dict(total_cov=1334, split_num=2)
+
+
+def phase11_store():
+    """Phase 11's input: (ReadStore, strains) of the SAVAGE envelope at 2
+    patches (torch_envelope.py:savage_envelope_store)."""
+    import torch_envelope
+
+    return torch_envelope.savage_envelope_store(**PHASE11_ENVELOPE)
+
+
+def two_rank_cli(store, workdir, split_num, device="cuda", timeout=600):
+    """SAVAGE through the CLI as two ranks (torchrun), the torch backend on
+    `device` (a card a rank); returns each rank's {stage: (ids, contigs)}
+    as its output directory holds them (rank 0's in -o, rank 1's in
+    <-o>/rank1) and the run's wall seconds."""
+    from haploconduct_torch.io.fastq import read_fasta, write_fastq
+
+    reads = os.path.join(workdir, "envelope_reads.fastq")
+    write_fastq(reads, list(range(len(store))),
+                [store.seq_str(i) for i in range(len(store))],
+                [store.phred_str(i) for i in range(len(store))])
+    outdir = os.path.join(workdir, "two_ranks")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m", "haploconduct_torch", "savage",
+           "-s", reads, "--split", str(split_num), "-o", outdir, "--backend", "torch",
+           "--device", device]
+    env = dict(os.environ, HC_TORCH_DEVICE=device,
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"two-rank CLI run failed ({proc.returncode}):\n"
+                             + text[-4000:])
+    ranks = []
+    for rank_dir in (outdir, os.path.join(outdir, "rank1")):
+        got = {}
+        for stage in "abc":
+            ids, seqs = read_fasta(os.path.join(rank_dir, f"contigs_stage_{stage}.fasta"))
+            got[stage] = ([int(i) for i in ids], seqs)
+        ranks.append(got)
+    return ranks, wall
+
+
+def phase_savage_envelope(torch, workdir):
+    """Phase 11: SAVAGE over 2 envelope patches, torch against native, and
+    as two ranks of the CLI when there are two cards. Returns the torch
+    run's launches of the scoring kernel."""
+    from haploconduct_torch.ops import kernels
+    from haploconduct_torch.ops.verify import BACKEND_COUNTS
+    from haploconduct_torch.workflows.savage import SavageConfig, run_savage
+
+    t0 = time.perf_counter()
+    store, _ = phase11_store()
+    split = PHASE11_ENVELOPE["split_num"]
+    log(f"[savage_envelope] {len(store)} reads, {split} patches of 667x, built "
+        f"in {time.perf_counter() - t0:.1f}s")
+    runs = {}
+    for backend in ("torch", "native"):
+        for key in BACKEND_COUNTS:
+            BACKEND_COUNTS[key] = 0
+        kernels.score_tasks_cuda.launches = 0
+        t0 = time.perf_counter()
+        res = run_savage(store, SavageConfig(split_num=split, backend=backend,
+                                             min_clique_size=4))
+        wall = time.perf_counter() - t0
+        if backend == "torch":
+            launches = kernels.score_tasks_cuda.launches
+            counts = dict(BACKEND_COUNTS)
+        runs[backend] = contig_sets(res)
+        t = res.timings
+        log(f"[savage_envelope_{backend}] wall={wall:.2f}s stage_a={t.get('stage_a_s')}s "
+            f"(cand {t.get('stage_a_candidates_s')}s) stage_b={t.get('stage_b_s')}s "
+            f"(filter {t.get('stage_b_filter_s')}s) stage_c={t.get('stage_c_s')}s "
+            f"(filter {t.get('stage_c_filter_s')}s) contigs a/b/c="
+            f"{[len(runs[backend][s][0]) for s in sorted(runs[backend])]}")
+    log(f"[savage_envelope_torch] kernel launches={launches} tasks={counts['torch']} "
+        f"rechecked_tasks={counts['recheck']}")
+    if launches == 0:
+        raise AssertionError("the envelope run never launched the scoring kernel")
+    if counts["numpy"] or counts["native"]:
+        raise AssertionError("the torch envelope run scored tasks on a host backend")
+    if set(runs["torch"]) != set("abc") or runs["torch"] != runs["native"]:
+        raise AssertionError("envelope contigs (torch) differ from the native engine's")
+    log("[savage_envelope] stage a/b/c contigs byte-identical, torch vs native")
+    if torch.cuda.device_count() < 2:
+        log("[savage_envelope] the two-rank CLI run needs two cards and this "
+            "host has one: not run")
+        return launches
+    ranks, wall = two_rank_cli(store, workdir, split)
+    for rank, got in enumerate(ranks):
+        if got != runs["torch"]:
+            raise AssertionError(f"two-rank CLI run: rank {rank}'s contigs differ "
+                                 "from the one-process torch run's")
+    log(f"[savage_envelope] two ranks on two cards through the CLI: {wall:.2f}s, "
+        "every rank's stage a/b/c contigs equal the one-process run's")
+    return launches
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     os.environ["HC_TORCH_DEVICE"] = "cuda"
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card",
@@ -922,6 +1044,9 @@ def main() -> int:
         phase_savage_ref(workdir)
         log(f"[phases 5-7] {time.perf_counter() - t0:.1f}s")
         split = phase_polyte_split(torch, workdir)
+        t0 = time.perf_counter()
+        envelope_launches = phase_savage_envelope(torch, workdir)
+        log(f"[phase 11] {time.perf_counter() - t0:.1f}s")
     phase_mesh_stream(torch)
     mesh_launches = phase_mesh_savage(torch, patch, runs["torch"], counts["torch"],
                                       launches)
@@ -955,6 +1080,7 @@ def main() -> int:
     if loaded:
         raise AssertionError(f"the port loaded the JAX package or jax: {loaded}")
     log("[standalone] no module of haploconduct_tpu and no jax in sys.modules")
+    log(f"[total] {time.perf_counter() - t_start:.1f}s")
 
     env = report[0]
     print(json.dumps({"kernels": [{
@@ -962,9 +1088,11 @@ def main() -> int:
         "route": "cuda",
         "source": "haploconduct_torch/csrc/score_tasks.cu",
         "replaces": "haploconduct_tpu/ops/pallas_score.py:75",
-        "launches": launches + split["launches"] + mesh_launches + dryrun_launches,
+        "launches": (launches + split["launches"] + mesh_launches + dryrun_launches
+                     + envelope_launches),
         "launches_by_path": {"savage": launches, "polyte_split": split["launches"],
-                             "mesh": mesh_launches, "mesh_dryrun": dryrun_launches},
+                             "mesh": mesh_launches, "mesh_dryrun": dryrun_launches,
+                             "savage_envelope": envelope_launches},
         "max_abs_err": max(r["max_abs_err"] for r in report),
         "ms": env["ms"],
         "plain_ms": env["plain_ms"],

@@ -7,7 +7,11 @@ with an error, and the host engines run when named (--backend native or
 numpy). --device (default cuda, or HC_TORCH_DEVICE) says where the torch
 backend runs: --device cpu runs its plain versions on the CPU, the only
 way it runs there. polyte's --candidates auto re-overlaps contigs with the
-torch sort-join when the torch backend runs on a card.
+torch sort-join when the torch backend runs on a card. Under a process
+group (torchrun) savage and polyte-split round-robin their patches or
+regions over the ranks and every rank ends with the whole result; rank 0
+writes it to -o, rank r > 0 to <-o>/rank<r> (its checkpoints too), so no
+two processes write one file.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import os
 import sys
 
 from .core.reads import ReadStore, decode_seq
+from .parallel import distributed
 from .parallel.devices import DEVICE_ENV
 
 BACKENDS = ["torch", "native", "numpy", "auto"]
@@ -35,6 +40,14 @@ def _parse(ap, argv):
     args = ap.parse_args(argv)
     os.environ[DEVICE_ENV] = args.device
     return args
+
+
+def _rank_outdir(outdir: str) -> str:
+    """The directory this process writes: `outdir`, or `outdir/rank<r>` for
+    rank r > 0 of a process group of more than one rank."""
+    if distributed.maybe_initialize() and distributed.process_index() > 0:
+        return os.path.join(outdir, f"rank{distributed.process_index()}")
+    return outdir
 
 
 def _load_store(args) -> ReadStore:
@@ -85,6 +98,7 @@ def cmd_savage(argv) -> int:
                     help="write a torch.profiler Chrome trace per stage")
     ap.add_argument("--verbose", action="store_true")
     args = _parse(ap, argv)
+    args.outdir = _rank_outdir(args.outdir)
 
     store = _load_store(args)
     cfg = SavageConfig(
@@ -195,6 +209,7 @@ def cmd_polyte_split(argv) -> int:
     ap.add_argument("--backend", default="auto", choices=BACKENDS)
     _add_device(ap)
     args = _parse(ap, argv)
+    args.outdir = _rank_outdir(args.outdir)
     store = _load_store(args)
     cfg = PolyteSplitConfig(
         hap_cov=args.hap_cov, insert_size=args.insert_size, stddev=args.stddev,
@@ -257,16 +272,16 @@ def main(argv=None) -> int:
         print(USAGE)
         return 0
     cmd, rest = argv[0], argv[1:]
-    if cmd == "savage":
-        return cmd_savage(rest)
-    if cmd == "polyte":
-        return cmd_polyte(rest)
-    if cmd in ("polyte-split", "polyte_split"):
-        return cmd_polyte_split(rest)
-    if cmd in ("count-strains", "count_strains"):
-        return cmd_count_strains(rest)
-    print(USAGE)
-    return 1
+    commands = {"savage": cmd_savage, "polyte": cmd_polyte,
+                "polyte-split": cmd_polyte_split, "polyte_split": cmd_polyte_split,
+                "count-strains": cmd_count_strains, "count_strains": cmd_count_strains}
+    if cmd not in commands:
+        print(USAGE)
+        return 1
+    try:
+        return commands[cmd](rest)
+    finally:
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

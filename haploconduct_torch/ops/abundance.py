@@ -11,9 +11,14 @@ that model:
   (kallisto's intersection over observed k-mers);
 - *EM*: classic transcript-abundance EM over equivalence-class counts with
   effective lengths eff_len = max(len - frag_len + 1, 1). Backend torch
-  runs 500 f32 steps w = alpha / eff_len, alpha <- w * M^T (cnt / (M w)) in
+  runs 500 f64 steps w = alpha / eff_len, alpha <- w * M^T (cnt / (M w)) in
   torch ops on the scoring device (the dense matrix products go to
-  torch.matmul); native and numpy run the f64 host EM;
+  torch.matmul); native and numpy run the same f64 EM on the host. The
+  reference's device EM (`_em_device`) runs in f32, where the mass of a
+  contig whose reads are all shared with a stronger one decays below
+  f32's range within the 500 steps and becomes 0, so the `tpm > 0` filter
+  drops a contig the f64 host EM keeps; the port runs the f64 EM on the
+  card instead, which also leaves no TF32 mode to the caller;
 - *TPM*: (est_counts / eff_len) normalized to 1e6, matching kallisto's
   abundance.tsv column.
 
@@ -187,22 +192,23 @@ class PseudoIndex:
 
 def _em_torch(membership: np.ndarray, counts: np.ndarray,
               eff_len: np.ndarray, iters: int, device=None) -> np.ndarray:
-    """EM on `device` (None: the torch backend's device,
+    """_em_numpy's f64 EM on `device` (None: the torch backend's device,
     parallel/devices.py:default_device): membership (C, T) 0/1, counts (C,);
     returns est_counts (T,) as float64."""
     if device is None:
         device = default_device()
-    M = torch.as_tensor(membership, dtype=torch.float32, device=device)
-    cnt = torch.as_tensor(counts, dtype=torch.float32, device=device)
-    inv_el = torch.as_tensor(1.0 / eff_len, dtype=torch.float32, device=device)
+    f64 = torch.float64
+    M = torch.as_tensor(membership, dtype=f64, device=device)
+    cnt = torch.as_tensor(counts, dtype=f64, device=device)
+    inv_el = torch.as_tensor(1.0 / eff_len, dtype=f64, device=device)
     T = M.shape[1]
     alpha = torch.full((T,), float(counts.sum()) / max(T, 1),
-                       dtype=torch.float32, device=device)
+                       dtype=f64, device=device)
     for _ in range(iters):
         w = alpha * inv_el
-        resp = cnt / torch.clamp(M @ w, min=1e-30)
+        resp = cnt / torch.clamp(M @ w, min=1e-300)
         alpha = w * (M.T @ resp)
-    return alpha.cpu().numpy().astype(np.float64)
+    return alpha.cpu().numpy()
 
 
 def _em_numpy(membership: np.ndarray, counts: np.ndarray,

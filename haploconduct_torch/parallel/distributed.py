@@ -9,16 +9,25 @@ items are round-robined over ranks and the per-item results are gathered
 back to every rank with all_gather_object, so the joint stages run
 replicated. A (ReadStore, SubreadDict) pair travels as JSON, its
 subreads in the reference's subreads.txt text format.
+
+The group's collectives wait for the slowest rank: the gather after
+SAVAGE stage a waits while that rank assembles its last patch, so the
+group's timeout (COLLECTIVE_TIMEOUT) is set far above a stage's time
+rather than left at NCCL's ten-minute default.
 """
 
 from __future__ import annotations
 
+import datetime
 import json
 import os
 from typing import List, Sequence
 
 from ..core.reads import ReadStore
 from ..io.subreads import subreads_from_text, subreads_to_text
+
+
+COLLECTIVE_TIMEOUT = datetime.timedelta(hours=4)
 
 
 def _dist():
@@ -47,8 +56,16 @@ def maybe_initialize() -> bool:
         backend = "nccl"
     else:
         backend = "gloo"
-    dist.init_process_group(backend=backend, init_method="env://")
+    dist.init_process_group(backend=backend, init_method="env://",
+                            timeout=COLLECTIVE_TIMEOUT)
     return dist.get_world_size() > 1
+
+
+def shutdown() -> None:
+    """Leave the process group, when this process joined one."""
+    dist = _dist()
+    if dist is not None and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def process_count() -> int:

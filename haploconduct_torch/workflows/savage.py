@@ -80,6 +80,9 @@ class SavageResult:
     # per-stage wall/candidate seconds (stage b/c profile, SURVEY §5
     # tracing; per-phase splits live in each StageResult.phase_times)
     timings: Dict[str, float] = field(default_factory=dict)
+    # stage a's phase seconds summed over this process's patches
+    # (stage_a.phase_times holds patch 0's alone)
+    stage_a_phase_times: Dict[str, float] = field(default_factory=dict)
 
     def contigs(self, stage: str) -> Tuple[List[int], List[str]]:
         res = getattr(self, f"stage_{stage}" if stage in "abc" else stage)
@@ -326,6 +329,8 @@ def run_savage(
         maybe_initialize()
         mine = my_work_items(len(patches))
         local_results: List[StageResult] = []
+        cand_s = 0.0
+        t_a = time.time()
         for pidx in mine:
             t_patch = time.time()
             pstore, _ = patches[pidx]
@@ -334,6 +339,7 @@ def run_savage(
             else:
                 overlaps = denovo_candidates(pstore, min_overlap_len, cfg.sfo_mm, cfg.kmer_k)
             t_cand = time.time() - t_patch
+            cand_s += t_cand
             params = StageParams(
                 stage="a",
                 min_overlap_len=min_overlap_len,
@@ -354,7 +360,17 @@ def run_savage(
                       f"({t_cand:.0f}s) -> {len(r.store)} contigs in "
                       f"{r.iterations} its, {time.time() - t_patch:.0f}s",
                       file=sys.stderr, flush=True)
+        # this process's patches, then the wait for and decoding of the
+        # other processes' (0 in one process)
+        result.timings["stage_a_candidates_s"] = round(cand_s, 2)
+        result.timings["stage_a_s"] = round(time.time() - t_a, 2)
+        for r in local_results:
+            for name, sec in r.phase_times.items():
+                result.stage_a_phase_times[name] = (
+                    result.stage_a_phase_times.get(name, 0.0) + sec)
+        t0 = time.time()
         patch_results = allgather_stage_results(local_results, mine, len(patches))
+        result.timings["stage_a_gather_s"] = round(time.time() - t0, 2)
 
         combined, combined_sub = combine_patch_contigs(patch_results, id_maps)
         result.stage_a = patch_results[0]

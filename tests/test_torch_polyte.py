@@ -209,7 +209,8 @@ def test_cli_count_strains_matches_reference_cli(tmp_path, capsys):
 def test_maybe_initialize_sets_the_rank_card_before_nccl(monkeypatch, local_rank,
                                                          rank, want_card):
     """With CUDA present each rank takes its own card (LOCAL_RANK, else RANK
-    modulo the card count) before the NCCL group starts."""
+    modulo the card count) before the NCCL group starts, with the group's
+    timeout set above a SAVAGE stage's time (distributed.COLLECTIVE_TIMEOUT)."""
     import torch
     import torch.distributed as dist
 
@@ -221,7 +222,8 @@ def test_maybe_initialize_sets_the_rank_card_before_nccl(monkeypatch, local_rank
     monkeypatch.setattr(torch.cuda, "set_device", lambda d: calls.append(("set_device", d)))
     monkeypatch.setattr(dist, "is_initialized", lambda: False)
     monkeypatch.setattr(dist, "init_process_group",
-                        lambda backend, init_method: calls.append(("init", backend)))
+                        lambda backend, init_method, timeout: calls.append(
+                            ("init", backend, timeout)))
     monkeypatch.setattr(dist, "get_world_size", lambda: 2)
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setenv("RANK", rank)
@@ -230,4 +232,5 @@ def test_maybe_initialize_sets_the_rank_card_before_nccl(monkeypatch, local_rank
     else:
         monkeypatch.setenv("LOCAL_RANK", local_rank)
     assert distributed.maybe_initialize()
-    assert calls == [("set_device", want_card), ("init", "nccl")]
+    assert calls == [("set_device", want_card),
+                     ("init", "nccl", distributed.COLLECTIVE_TIMEOUT)]

@@ -1,5 +1,5 @@
-"""haploconduct_torch stands alone: no module of it, and not chip_smoke.py,
-imports the JAX package or jax; a process that refuses both imports every
+"""haploconduct_torch stands alone: no module of it, and not chip_smoke.py
+or torch_envelope.py, imports the JAX package or jax; a process that refuses both imports every
 module of the port and runs it; importing it tunes the allocator; the host
 modules it copied are the reference's, byte for byte; and state crosses
 from the reference's objects to the port's only as plain arrays."""
@@ -72,7 +72,8 @@ def _imports(path: Path):
 
 
 def test_no_module_imports_the_reference_or_jax():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                          REPO / "torch_envelope.py"]
     assert len(files) > 40
     bad = {str(f.relative_to(REPO)): sorted(set(_imports(f)) & set(REFUSED))
            for f in files}
@@ -97,6 +98,7 @@ DRIVE = """
         importlib.import_module(name)
 
     import chip_smoke
+    import torch_envelope
     from haploconduct_torch.assemble.stages import StageParams, run_stage
     from haploconduct_torch.core.reads import ReadStore
     from haploconduct_torch.io.sfo import sfo_to_overlaps
