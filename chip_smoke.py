@@ -6,10 +6,12 @@
 Phases (each prints a line; any failure exits non-zero):
   1. the card's name and power limit; build the CUDA kernel from csrc/;
   2. the scoring kernel (score_tasks_cuda) against its plain PyTorch
-     version (score_tasks_plain) on the card, on the same tasks at five
-     shapes (SAVAGE iteration 1 of one envelope patch, kb-wide contigs,
-     more than 2^16 rows, a 9 kb wide matrix, an EC iteration of a
-     polyte-split region) and thresholds 0 and far_threshold(): integer
+     version (score_tasks_plain) on the card, on the same tasks at the
+     shapes of phase_kernel (SAVAGE iteration 1 of one envelope patch,
+     kb-wide contigs, more than 2^16 rows, a 9 kb wide matrix, an EC
+     iteration of a polyte-split region, POLYTE diploid's first and a
+     late iteration, a 500 kb polyte-split region's first iteration and
+     its final pass) and thresholds 0 and far_threshold(): integer
      columns equal, sum_log within rtol 1e-4 / atol 1e-3; each shape's
      kernel, plain and bound times;
   3. stage a on a 160-read store (150 bp reads of a 2 kb genome, k=16
@@ -18,7 +20,9 @@ Phases (each prints a line; any failure exits non-zero):
   4. SAVAGE stages a -> b -> c on one envelope patch (10 kb genome, 4
      strains at 3% divergence, 150 bp reads at 0.2% error, 667x coverage,
      about 44k reads) with the torch backend, which must go through the
-     kernel, against the native host engine: byte-identical contigs;
+     kernel on card 0 (mesh.default_mesh pinned to it, whatever the card
+     count: savage_patch_run), against the native host engine:
+     byte-identical contigs;
   5. the k-mer sort-join on the card: an exact pass (min overlap 100) over
      1,000 contig-like sequences of 300-3,000 bp from two haplotypes of a
      150 kb genome; the same SFO array as the join on the CPU, and the same
@@ -31,10 +35,17 @@ Phases (each prints a line; any failure exits non-zero):
   8. polyte-split at its documented envelope (120 kb genome, one haplotype
      at 0.5%, 15x per haplotype of error-free 250 bp reads = 14,400 reads):
      (a) torch with the join on the card, (b) native with the join on the
-     card, (c) native with the host join. (a) and (b) byte-identical, (c)
-     equal to the JAX package's pinned result (435 contigs, 296,804 bp,
-     longest 2,686, 12 regions), (a) through the kernel and the join on the
-     card, no task on a host backend, no region failed;
+     card, (c) native with the host join, each scoring on card 0. (a) and
+     (b) byte-identical, (c) equal to the JAX package's pinned result (435
+     contigs, 296,804 bp, longest 2,686, 12 regions), (a) through the
+     kernel and the join on the card, no task on a host backend, no region
+     failed; (a)'s sha256 and quality columns against the two haplotypes
+     (torch_envelope.polyte_quality). With two cards or more, the same
+     reads also go through the CLI as two ranks (python -m
+     torch.distributed.run --nproc_per_node 2 -m haploconduct_torch
+     polyte-split), the regions round-robined over the ranks and gathered
+     over NCCL: every rank's contigs equal (a)'s; with one card that part
+     is logged as not run;
   9. multi-device verification (parallel/mesh.py): (a) phase 2's
      iteration-1 stream scored by sharded_score_tasks over two shards on
      card 0, and over every visible card when there are several, against
@@ -63,14 +74,25 @@ Phases (each prints a line; any failure exits non-zero):
      operating point at reduced depth): the envelope at its full width
      (10 kb, 4 strains at 3%, 150 bp reads, 667x a patch) cut to 2 patches,
      1,334x in all (savage_envelope_store(total_cov=1334, split_num=2)),
-     a -> b -> c with the torch backend, which must launch the scoring
-     kernel, against the native engine: byte-identical contigs in every
-     stage. With two cards or more, the same reads also go through the
+     a -> b -> c with the torch backend on card 0, which must launch the
+     scoring kernel, against the native engine: byte-identical contigs in
+     every stage. With two cards or more, the same reads also go through the
      CLI as two ranks (python -m torch.distributed.run --nproc_per_node 2
      -m haploconduct_torch savage --split 2), patches round-robined over
      the ranks and gathered over NCCL: every rank's stage a/b/c contigs
      equal the one-process torch run's. With one card that part is
      logged as not run.
+ 12. POLYTE diploid at the JAX package's recorded operating point
+     (tools/br_scale_bench.py: a 50 kb genome and a haplotype at 1%, 20x
+     each of 150 bp reads at 0.2% error, 13,332 reads; not cut), the
+     torch backend on card 0, which must launch the scoring kernel,
+     against the native engine, both with the host candidate engine:
+     contigs, diploid contigs and iterations byte-identical, and the
+     record's 570 contigs in 37 iterations.
+
+Phases 4, 8, 11 and 12 score on card 0 alone whatever the number of
+visible cards (pinned_mesh), so their counts hold on a host with several;
+phases 9 and 10 cover several devices on purpose.
 
 Phase 4 also prints the stage c contigs' genome fraction and mismatch rate
 against the four strains (workflows/evaluate.py); no check reads them. The
@@ -84,6 +106,7 @@ on the card: it sets HC_TORCH_DEVICE=cuda for its own process.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -201,6 +224,16 @@ def phase_kernel(torch, rng):
         # an EC iteration of a polyte-split envelope region: 2 x 1,320
         # oriented reads of 250 bp, overlaps of at least 127 bp
         kernel_case("polyte_region", rng, 2640, 250, 250, 120_000, 127),
+        # POLYTE diploid at 50 kb (torch_envelope.py --workflow polyte):
+        # its first (EC) iteration, 2 x 13,332 reads of 150 bp, overlaps of
+        # at least 77 bp, and a late diploid iteration over contigs
+        kernel_case("polyte_diploid_it1", rng, 26_664, 150, 150, 248_268, 77),
+        kernel_case("polyte_diploid_late", rng, 1042, 1347, 150, 1177, 60),
+        # polyte-split at 500 kb: the largest region's first iteration, and
+        # the final pass's first, over every region's contigs (the one step
+        # whose size grows with the genome)
+        kernel_case("split500_region_it1", rng, 2826, 250, 250, 22_022, 127),
+        kernel_case("split500_final", rng, 4890, 2928, 250, 5973, 127),
     ]
     thresh = far_threshold()
     report = []
@@ -295,16 +328,12 @@ def envelope_patch(seed=SEED, genome_len=10_000, n_haps=4, divergence=0.03,
 def sim_store(haps, coverage, read_len, rng):
     """A single-end store of the repo simulator's error-free reads of
     `haps` (utils/simulate.py:simulate_reads; phred 40)."""
+    import torch_envelope
     from haploconduct_torch.utils.simulate import simulate_reads
-    from haploconduct_torch.workflows.savage import ReadStore
 
     seqs, quals = simulate_reads(haps, coverage=coverage, read_len=read_len,
                                  rng=rng, error_rate=0.0)
-    store = ReadStore()
-    for i, (s, q) in enumerate(zip(seqs, quals)):
-        store.add_single(i, s, q)
-    store.readcount_single = len(seqs)
-    return store
+    return torch_envelope.single_end_store(seqs, quals)
 
 
 def codes_store(seqs):
@@ -321,16 +350,6 @@ def codes_store(seqs):
 def write_fasta(path, name, seq):
     with open(path, "w") as f:
         f.write(f">{name}\n{seq}\n")
-
-
-def polyte_envelope_reads(genome_len=120_000, hap_cov=15, read_len=250):
-    """tools/envelope_run.py:polyte_envelope's genome and read store."""
-    from haploconduct_torch.utils.simulate import mutate_sequence, random_genome
-
-    rng = np.random.default_rng(1)
-    genome = random_genome(rng, genome_len)
-    hap2 = mutate_sequence(genome, rng, sub_rate=0.005)
-    return genome, sim_store([genome, hap2], hap_cov, read_len, rng)
 
 
 def contig_like_seqs(n=1000, genome_len=150_000, seed=SEED):
@@ -352,6 +371,47 @@ def contig_like_seqs(n=1000, genome_len=150_000, seed=SEED):
 
 def store_seqs(store):
     return None if store is None else [store.seq_str(i) for i in range(len(store))]
+
+
+@contextlib.contextmanager
+def pinned_mesh(devices):
+    """mesh.default_mesh() names `devices` inside the block, whatever cards
+    are visible, and is restored after: with one device every verify call
+    scores through score_tasks_torch on it, counted under "torch"; with
+    more, through the mesh (ops/verify.py routes by device_count())."""
+    from haploconduct_torch.parallel import mesh
+
+    saved = mesh.default_mesh
+    mesh.default_mesh = lambda: list(devices)
+    try:
+        yield
+    finally:
+        mesh.default_mesh = saved
+
+
+def savage_patch_run(torch, patch, backend, devices):
+    """SAVAGE a -> b -> c on `patch` with split_num=1, the torch backend
+    scoring on the list `devices` whatever cards are visible: phase 4 names
+    one, phase 9 (b) card 0 twice. Returns the result, its wall, and the
+    scoring kernel's launches, the tasks per backend and the peak CUDA
+    memory of the run."""
+    from haploconduct_torch.ops import kernels
+    from haploconduct_torch.ops.verify import BACKEND_COUNTS
+    from haploconduct_torch.workflows.savage import SavageConfig, run_savage
+
+    on_card = devices[0].type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    for key in BACKEND_COUNTS:
+        BACKEND_COUNTS[key] = 0
+    kernels.score_tasks_cuda.launches = 0
+    with pinned_mesh(devices):
+        t0 = time.perf_counter()
+        res = run_savage(patch, SavageConfig(split_num=1, backend=backend))
+        wall = time.perf_counter() - t0
+    return dict(res=res, wall=wall, launches=kernels.score_tasks_cuda.launches,
+                counts=dict(BACKEND_COUNTS),
+                peak=torch.cuda.max_memory_allocated() if on_card else 0)
 
 
 def reset_counts(kernels, backend_counts, join_calls, join_seconds):
@@ -443,28 +503,29 @@ def phase_savage_ref(workdir):
 
 
 def phase_polyte_split(torch, workdir):
-    """Phase 8: polyte-split at its envelope, three runs."""
+    """Phase 8: polyte-split at its envelope, three runs on card 0, the
+    quality columns and sha256 of (a)'s contigs, and with two cards or more
+    the CLI as two NCCL ranks."""
+    import torch_envelope
     from haploconduct_torch.ops import kernels
     from haploconduct_torch.ops.kmer_device import JOIN_CALLS, JOIN_SECONDS
     from haploconduct_torch.ops.verify import BACKEND_COUNTS
-    from haploconduct_torch.workflows.polyte_split import (PolyteSplitConfig,
-                                                           run_polyte_split)
+    from haploconduct_torch.workflows.polyte_split import run_polyte_split
 
-    genome, store = polyte_envelope_reads()
+    store, haps = torch_envelope.polyte_envelope_store()
     ref = os.path.join(workdir, "envelope_ref.fasta")
-    write_fasta(ref, "chr", genome)
+    write_fasta(ref, "chr", haps[0])
+    card0 = torch.device("cuda", 0)
     runs = {}
     for name, backend, cand in (("a", "torch", "auto"), ("b", "native", "auto"),
                                 ("c", "native", "host")):
-        cfg = PolyteSplitConfig(
-            hap_cov=15, insert_size=250, stddev=25, reference=ref,
-            split_size=10000, split_overlap=1000, backend=backend,
-            candidates=cand, min_overlap_len=100, min_overlap_len_EC=2 + 250 // 2)
+        cfg = torch_envelope.polyte_split_config(ref, backend=backend, candidates=cand)
         reset_counts(kernels, BACKEND_COUNTS, JOIN_CALLS, JOIN_SECONDS)
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        res = run_polyte_split(store, cfg)
-        wall = time.perf_counter() - t0
+        with pinned_mesh([card0]):
+            t0 = time.perf_counter()
+            res = run_polyte_split(store, cfg)
+            wall = time.perf_counter() - t0
         final = res.final.store
         lens = sorted((final.read_len(i) for i in range(len(final))), reverse=True)
         phases: dict = {}
@@ -509,6 +570,22 @@ def phase_polyte_split(torch, workdir):
         + ("identical" if same else
            f"differ ({a['n']} vs {c['n']} contigs): above 1,500 sequences the host "
            "engine subsamples seeds while the join is complete"))
+    t0 = time.perf_counter()
+    quality = torch_envelope.polyte_quality(a["contigs"], haps)
+    log(f"[polyte_split_a] sha256 {torch_envelope.contig_digest(a['contigs'])}; "
+        f"quality ({time.perf_counter() - t0:.1f}s) per haplotype "
+        f"{json.dumps(quality['per_haplotype'])}; union {json.dumps(quality['union'])}")
+    if torch.cuda.device_count() < 2:
+        log("[polyte_split] the two-rank CLI run needs two cards and this host "
+            "has one: not run")
+        return a
+    ranks, wall = two_rank_polyte_split(store, ref, workdir)
+    for rank, got in enumerate(ranks):
+        if got != a["contigs"]:
+            raise AssertionError(f"polyte-split, two-rank CLI run: rank {rank}'s "
+                                 "contigs differ from (a)'s")
+    log(f"[polyte_split] two ranks on two cards through the CLI: {wall:.2f}s, "
+        "every rank's contigs equal (a)'s")
     return a
 
 
@@ -793,25 +870,10 @@ def phase_mesh_savage(torch, patch, want, tasks, launches):
     naming card 0 twice, so every verify call goes through the mesh.
     `want`, `tasks` and `launches` are phase 4's torch contigs, tasks and
     kernel launches."""
-    from haploconduct_torch.ops import kernels
-    from haploconduct_torch.ops.verify import BACKEND_COUNTS
-    from haploconduct_torch.parallel import mesh
-    from haploconduct_torch.workflows.savage import SavageConfig, run_savage
-
     card0 = torch.device("cuda", 0)
-    saved = mesh.default_mesh
-    mesh.default_mesh = lambda: [card0, card0]
-    try:
-        for key in BACKEND_COUNTS:
-            BACKEND_COUNTS[key] = 0
-        kernels.score_tasks_cuda.launches = 0
-        t0 = time.perf_counter()
-        res = run_savage(patch, SavageConfig(split_num=1, backend="torch"))
-        wall = time.perf_counter() - t0
-        mesh_launches = kernels.score_tasks_cuda.launches
-        counts = dict(BACKEND_COUNTS)
-    finally:
-        mesh.default_mesh = saved
+    run = savage_patch_run(torch, patch, "torch", [card0, card0])
+    res, wall = run["res"], run["wall"]
+    mesh_launches, counts = run["launches"], run["counts"]
     verify_s = sum(r.phase_times.get("verify", 0.0)
                    for r in (res.stage_a, res.stage_b, res.stage_c) if r is not None)
     log(f"[mesh_b] SAVAGE a->b->c, default_mesh() = [cuda:0, cuda:0]: "
@@ -840,22 +902,23 @@ def phase11_store():
     return torch_envelope.savage_envelope_store(**PHASE11_ENVELOPE)
 
 
-def two_rank_cli(store, workdir, split_num, device="cuda", timeout=600):
-    """SAVAGE through the CLI as two ranks (torchrun), the torch backend on
-    `device` (a card a rank); returns each rank's {stage: (ids, contigs)}
-    as its output directory holds them (rank 0's in -o, rank 1's in
-    <-o>/rank1) and the run's wall seconds."""
-    from haploconduct_torch.io.fastq import read_fasta, write_fastq
+def write_reads(store, path):
+    from haploconduct_torch.io.fastq import write_fastq
 
-    reads = os.path.join(workdir, "envelope_reads.fastq")
-    write_fastq(reads, list(range(len(store))),
+    write_fastq(path, list(range(len(store))),
                 [store.seq_str(i) for i in range(len(store))],
                 [store.phred_str(i) for i in range(len(store))])
-    outdir = os.path.join(workdir, "two_ranks")
+    return path
+
+
+def two_rank_run(cli_args, device="cuda", timeout=600):
+    """The CLI, python -m haploconduct_torch <cli_args> --backend torch
+    --device <device>, as two ranks under torchrun (a card a rank);
+    returns its wall seconds and raises with the end of its output when
+    it fails."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", "2", "-m", "haploconduct_torch", "savage",
-           "-s", reads, "--split", str(split_num), "-o", outdir, "--backend", "torch",
-           "--device", device]
+           "--nproc_per_node", "2", "-m", "haploconduct_torch", *cli_args,
+           "--backend", "torch", "--device", device]
     env = dict(os.environ, HC_TORCH_DEVICE=device,
                PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
     t0 = time.perf_counter()
@@ -872,6 +935,20 @@ def two_rank_cli(store, workdir, split_num, device="cuda", timeout=600):
     if proc.returncode != 0:
         raise AssertionError(f"two-rank CLI run failed ({proc.returncode}):\n"
                              + text[-4000:])
+    return wall
+
+
+def two_rank_cli(store, workdir, split_num, device="cuda", timeout=600):
+    """SAVAGE through the CLI as two ranks, the torch backend on `device`;
+    returns each rank's {stage: (ids, contigs)} as its output directory
+    holds them (rank 0's in -o, rank 1's in <-o>/rank1) and the run's wall
+    seconds."""
+    from haploconduct_torch.io.fastq import read_fasta
+
+    reads = write_reads(store, os.path.join(workdir, "envelope_reads.fastq"))
+    outdir = os.path.join(workdir, "two_ranks")
+    wall = two_rank_run(["savage", "-s", reads, "--split", str(split_num),
+                         "-o", outdir], device, timeout)
     ranks = []
     for rank_dir in (outdir, os.path.join(outdir, "rank1")):
         got = {}
@@ -880,6 +957,28 @@ def two_rank_cli(store, workdir, split_num, device="cuda", timeout=600):
             got[stage] = ([int(i) for i in ids], seqs)
         ranks.append(got)
     return ranks, wall
+
+
+def two_rank_polyte_split(store, reference, workdir, device="cuda", timeout=900):
+    """polyte-split at torch_envelope.polyte_split_config's settings through
+    the CLI as two ranks, the torch backend on `device` (the regions
+    round-robined over the ranks and gathered); returns each rank's final
+    contigs (rank 0's -o/contigs.fasta, rank 1's <-o>/rank1/contigs.fasta)
+    and the run's wall seconds. The CLI takes the configuration's
+    min_overlap_len_EC, 2 + read_len // 2, from the reads' mean length."""
+    import torch_envelope
+    from haploconduct_torch.io.fastq import read_fasta
+
+    cfg = torch_envelope.polyte_split_config(reference)
+    reads = write_reads(store, os.path.join(workdir, "split_reads.fastq"))
+    outdir = os.path.join(workdir, "two_rank_split")
+    wall = two_rank_run([
+        "polyte-split", "-s", reads, "--ref", reference, "--hap_cov", str(cfg.hap_cov),
+        "--insert_size", str(cfg.insert_size), "--stddev", str(cfg.stddev),
+        "-m", str(cfg.min_overlap_len), "--split_size", str(cfg.split_size),
+        "--split_overlap", str(cfg.split_overlap), "-o", outdir], device, timeout)
+    return [read_fasta(os.path.join(d, "contigs.fasta"))[1]
+            for d in (outdir, os.path.join(outdir, "rank1"))], wall
 
 
 def phase_savage_envelope(torch, workdir):
@@ -900,10 +999,11 @@ def phase_savage_envelope(torch, workdir):
         for key in BACKEND_COUNTS:
             BACKEND_COUNTS[key] = 0
         kernels.score_tasks_cuda.launches = 0
-        t0 = time.perf_counter()
-        res = run_savage(store, SavageConfig(split_num=split, backend=backend,
-                                             min_clique_size=4))
-        wall = time.perf_counter() - t0
+        with pinned_mesh([torch.device("cuda", 0)]):
+            t0 = time.perf_counter()
+            res = run_savage(store, SavageConfig(split_num=split, backend=backend,
+                                                 min_clique_size=4))
+            wall = time.perf_counter() - t0
         if backend == "torch":
             launches = kernels.score_tasks_cuda.launches
             counts = dict(BACKEND_COUNTS)
@@ -937,6 +1037,66 @@ def phase_savage_envelope(torch, workdir):
     return launches
 
 
+# POLYTE diploid's genome in phase 12: the JAX record's 50 kb
+# (tools/br_scale_bench.py), not cut, since both runs together take about
+# a minute on the card's host; and the record's contigs and iterations
+# there (BASELINE.md:106-117), which phase 12 holds the native run to
+PHASE12_GENOME = 50_000
+PHASE12_PIN = (570, 37)
+
+
+def phase_polyte_diploid(torch):
+    """Phase 12: POLYTE diploid at the JAX record's operating point (150 bp
+    reads at 0.2% error, 20x a haplotype, two haplotypes at 1% over
+    PHASE12_GENOME bp; torch_envelope.polyte_diploid_store), the torch
+    backend on card 0 against the native engine, both with the host
+    candidate engine (the record's): contigs, diploid contigs and
+    iterations identical, and the record's PHASE12_PIN. Returns the torch
+    run's launches of the scoring kernel."""
+    import torch_envelope
+    from haploconduct_torch.ops import kernels
+    from haploconduct_torch.ops.verify import BACKEND_COUNTS
+    from haploconduct_torch.workflows.polyte import PolyteConfig, run_polyte
+
+    store, _ = torch_envelope.polyte_diploid_store(PHASE12_GENOME)
+    card0 = torch.device("cuda", 0)
+    out = {}
+    for backend in ("torch", "native"):
+        for key in BACKEND_COUNTS:
+            BACKEND_COUNTS[key] = 0
+        kernels.score_tasks_cuda.launches = 0
+        with pinned_mesh([card0]):
+            t0 = time.perf_counter()
+            res = run_polyte(store, PolyteConfig(backend=backend, candidates="host",
+                                                 **torch_envelope.POLYTE_CONFIG))
+            wall = time.perf_counter() - t0
+        if backend == "torch":
+            launches, counts = kernels.score_tasks_cuda.launches, dict(BACKEND_COUNTS)
+        out[backend] = (store_seqs(res.store), store_seqs(res.diploid_store),
+                        res.iterations)
+        log(f"[polyte_diploid_{backend}] {len(store)} reads over "
+            f"{PHASE12_GENOME // 1000} kb: wall={wall:.2f}s iterations={res.iterations} "
+            f"contigs={len(out[backend][0] or [])} diploid="
+            f"{len(out[backend][1] or [])} sha256 "
+            f"{torch_envelope.contig_digest(out[backend][0] or [])[:16]}")
+    log(f"[polyte_diploid_torch] kernel launches={launches} tasks={counts['torch']} "
+        f"rechecked_tasks={counts['recheck']}")
+    if launches == 0:
+        raise AssertionError("POLYTE diploid never launched the scoring kernel")
+    if counts["numpy"] or counts["native"] or counts["mesh"]:
+        raise AssertionError(f"POLYTE diploid (torch) scored tasks off the kernel: {counts}")
+    if not out["torch"][0] or not out["torch"][1] or out["torch"] != out["native"]:
+        raise AssertionError("POLYTE diploid: torch contigs differ from native's")
+    got = (len(out["native"][0]), out["native"][2])
+    if got != PHASE12_PIN:
+        raise AssertionError(f"POLYTE diploid (native): {got} contigs and iterations, "
+                             f"not the JAX package's record {PHASE12_PIN}")
+    log("[polyte_diploid] contigs, diploid contigs and iterations byte-identical, "
+        f"torch vs native; {got[0]} contigs in {got[1]} iterations as the JAX "
+        "package's record")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -953,9 +1113,7 @@ def main() -> int:
 
     from haploconduct_torch.assemble.stages import StageParams, run_stage
     from haploconduct_torch.ops import kernels
-    from haploconduct_torch.ops.verify import BACKEND_COUNTS
-    from haploconduct_torch.workflows.savage import (
-        SavageConfig, denovo_candidates, run_savage)
+    from haploconduct_torch.workflows.savage import denovo_candidates
 
     # phase 1: build every kernel, one nvcc per source at once
     t0 = time.perf_counter()
@@ -993,20 +1151,12 @@ def main() -> int:
     log(f"[envelope] {len(patch)} reads of 150 bp built in "
         f"{time.perf_counter() - t0:.1f}s")
     runs = {}
+    card0 = torch.device("cuda", 0)
     for backend in ("torch", "native"):
-        cfg = SavageConfig(split_num=1, backend=backend)
+        run = savage_patch_run(torch, patch, backend, [card0])
+        res, wall = run["res"], run["wall"]
         if backend == "torch":
-            torch.cuda.reset_peak_memory_stats()
-            for key in BACKEND_COUNTS:
-                BACKEND_COUNTS[key] = 0
-            kernels.score_tasks_cuda.launches = 0
-        t0 = time.perf_counter()
-        res = run_savage(patch, cfg)
-        wall = time.perf_counter() - t0
-        if backend == "torch":
-            launches = kernels.score_tasks_cuda.launches
-            counts = dict(BACKEND_COUNTS)
-            peak = torch.cuda.max_memory_allocated()
+            launches, counts, peak = run["launches"], run["counts"], run["peak"]
         t = res.timings
         bc = sum(v for k, v in t.items() if k.startswith(("stage_b", "stage_c")))
         verify_s = sum(r.phase_times.get("verify", 0.0)
@@ -1047,6 +1197,9 @@ def main() -> int:
         t0 = time.perf_counter()
         envelope_launches = phase_savage_envelope(torch, workdir)
         log(f"[phase 11] {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    diploid_launches = phase_polyte_diploid(torch)
+    log(f"[phase 12] {time.perf_counter() - t0:.1f}s")
     phase_mesh_stream(torch)
     mesh_launches = phase_mesh_savage(torch, patch, runs["torch"], counts["torch"],
                                       launches)
@@ -1089,10 +1242,11 @@ def main() -> int:
         "source": "haploconduct_torch/csrc/score_tasks.cu",
         "replaces": "haploconduct_tpu/ops/pallas_score.py:75",
         "launches": (launches + split["launches"] + mesh_launches + dryrun_launches
-                     + envelope_launches),
+                     + envelope_launches + diploid_launches),
         "launches_by_path": {"savage": launches, "polyte_split": split["launches"],
                              "mesh": mesh_launches, "mesh_dryrun": dryrun_launches,
-                             "savage_envelope": envelope_launches},
+                             "savage_envelope": envelope_launches,
+                             "polyte_diploid": diploid_launches},
         "max_abs_err": max(r["max_abs_err"] for r in report),
         "ms": env["ms"],
         "plain_ms": env["plain_ms"],

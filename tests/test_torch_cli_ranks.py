@@ -1,7 +1,7 @@
-"""The port's SAVAGE CLI as two gloo ranks under torchrun (each rank's
-output in its own directory, every rank's contigs those of one process),
-and torch_envelope.py --profile's cProfile of patch 0's stage a and the
-two abundance filters."""
+"""The port's SAVAGE and polyte-split CLI as two gloo ranks under torchrun
+(each rank's output in its own directory, every rank's contigs those of
+one process), and torch_envelope.py --profile's cProfile of patch 0's
+stage a and the two abundance filters."""
 
 import numpy as np
 
@@ -11,6 +11,7 @@ from haploconduct_torch.core.reads import ReadStore
 from haploconduct_torch.utils.simulate import (mutate_sequence, random_genome,
                                                simulate_reads)
 from haploconduct_torch.workflows import savage
+from haploconduct_torch.workflows.polyte_split import run_polyte_split
 from haploconduct_torch.workflows.savage import SavageConfig, run_savage
 
 from torch_helpers import torch_on_cpu  # noqa: F401  (autouse)
@@ -42,6 +43,22 @@ def test_two_rank_cli_gives_every_rank_the_single_process_contigs(tmp_path):
     # rank 0 writes -o, rank 1 <-o>/rank1: each its own checkpoints
     assert (out / "checkpoints").is_dir() and (out / "rank1" / "checkpoints").is_dir()
     assert not (out / "rank0").exists()
+
+
+def test_two_rank_polyte_split_cli_gives_every_rank_the_single_process_contigs(tmp_path):
+    """chip_smoke.py phase 8's two-card part, on the CPU over gloo: the
+    envelope's configuration through the CLI as two ranks, on a 12 kb
+    genome (two regions, one a rank)."""
+    store, haps = torch_envelope.polyte_envelope_store(genome_len=12_000)
+    ref = str(tmp_path / "ref.fasta")
+    chip_smoke.write_fasta(ref, "chr", haps[0])
+    res = run_polyte_split(store, torch_envelope.polyte_split_config(ref, backend="torch"))
+    single = chip_smoke.store_seqs(res.final.store)
+    assert len(res.regions) == 2 and single
+    ranks, wall = chip_smoke.two_rank_polyte_split(store, ref, str(tmp_path),
+                                                   device="cpu", timeout=300)
+    assert wall > 0 and ranks == [single, single]
+    assert not (tmp_path / "two_rank_split" / "rank0").exists()
 
 
 def test_profile_covers_patch0_stage_a_and_both_filters(capsys):

@@ -1,8 +1,9 @@
 """torch_envelope.py (SAVAGE at its documented operating point on the port)
 against the JAX package's tools/envelope_run.py:savage_envelope: the same
 reads, and on a small envelope the same stage a/b/c contigs and quality
-columns as the JAX package's numpy backend; the JSON line's keys; and
-chip_smoke.py phase 11's input."""
+columns as the JAX package's numpy backend; the JSON line's keys;
+chip_smoke.py phase 11's input; and phase 4's run, which scores on the one
+device it names however many devices default_mesh() lists."""
 
 import contextlib
 import importlib.util
@@ -145,3 +146,28 @@ def test_chip_smoke_phase11_input_is_the_envelope_at_two_patches():
             assert all(np.array_equal(x, y) for x, y in zip(a[key], b[key]))
         else:
             assert a[key] == b[key], key
+
+
+def test_chip_smoke_phase4_scores_on_its_one_device_whatever_the_mesh(monkeypatch):
+    """With two devices in default_mesh(), verify routes every task through
+    the mesh: phase 4's run (savage_patch_run) pins the mesh to the one
+    device it names, counts every task under "torch" and none under
+    "mesh", and restores default_mesh() after; phase 9 (b)'s run names two."""
+    import torch
+
+    from haploconduct_torch.parallel import mesh
+
+    cpu = torch.device("cpu")
+    two = [cpu, cpu]
+    monkeypatch.setattr(mesh, "default_mesh", lambda: list(two))
+    store = chip_smoke.dryrun_store()
+    run = chip_smoke.savage_patch_run(torch, store, "torch", [cpu])
+    assert run["counts"]["torch"] > 0
+    assert run["counts"]["mesh"] == run["counts"]["native"] == run["counts"]["numpy"] == 0
+    assert run["launches"] == 0 and run["peak"] == 0 and run["wall"] > 0
+    assert mesh.default_mesh() == two
+    meshed = chip_smoke.savage_patch_run(torch, store, "torch", two)
+    assert meshed["counts"]["mesh"] == run["counts"]["torch"]
+    assert meshed["counts"]["torch"] == 0
+    assert chip_smoke.contig_sets(meshed["res"]) == chip_smoke.contig_sets(run["res"])
+    assert mesh.default_mesh() == two

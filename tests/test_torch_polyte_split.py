@@ -243,17 +243,18 @@ def test_two_process_gloo_polyte_split_matches_single(split_case, tmp_path):
 def test_chip_smoke_inputs_are_the_simulators_draws():
     """chip_smoke.py builds the polyte-split envelope (and the POLYTE and
     reference-guided inputs) with the port's copy of the simulator, without
-    importing the JAX package: its genome and store must be the reference
+    importing the JAX package: phase 8's genome and store
+    (torch_envelope.polyte_envelope_store) must be the reference
     simulator's draws, the envelope tool's store."""
-    import chip_smoke
+    import torch_envelope
 
     rng = np.random.default_rng(1)
     genome = random_genome(rng, 6000)
     hap2 = mutate_sequence(genome, rng, sub_rate=0.005)
     seqs, quals = simulate_reads([genome, hap2], coverage=15, read_len=250,
                                  rng=rng, error_rate=0.0)
-    g, store = chip_smoke.polyte_envelope_reads(genome_len=6000)
-    assert g == genome
+    store, (g, h2) = torch_envelope.polyte_envelope_store(genome_len=6000)
+    assert (g, h2) == (genome, hap2)
     want = ReadStore()
     for i, (s, q) in enumerate(zip(seqs, quals)):
         want.add_single(i, s, q)

@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
-"""SAVAGE at its documented operating point, on haploconduct_torch.
+"""SAVAGE, POLYTE and polyte-split at their documented operating points,
+on haploconduct_torch.
 
-    python3 torch_envelope.py [--backend torch,native] [--genome-len 10000]
-                              [--total-cov 10000] [--split 15] [--profile]
+    python3 torch_envelope.py [--workflow savage|polyte|polyte-split]
+                              [--backend torch,native] [--genome-len N]
+                              [--total-cov 10000] [--split 15]
+                              [--pool-size 1] [--profile]
 
-The port's counterpart of tools/envelope_run.py:savage_envelope: a 10 kb
+--workflow savage (the default) is the port's counterpart of
+tools/envelope_run.py:savage_envelope: a 10 kb
 random genome, 4 strains (the master and 3 at 3% substitutions), 150 bp
 single-end reads at 0.2% error, 10,000x in all (666,664 reads), split
 into 15 patches of 667x: the 500-1000x a patch that the SAVAGE
@@ -35,6 +39,39 @@ and over each of the two abundance filters, in a run that assembles
 patch 0 alone (stages b and c over its contigs, the filters over every
 read), and prints the top 30 functions of each by cumulative time
 instead of the JSON lines.
+
+--workflow polyte is POLYTE diploid, the counterpart of
+tools/br_scale_bench.py and tools/profile_polyte.py: a 50 kb random genome
+(--genome-len) and a second haplotype at 1% substitutions, 20x a
+haplotype of 150 bp reads at 0.2% error (13,332 reads), run_polyte with
+the tools' POLYTE_CONFIG. --workflow polyte-split is the counterpart of
+tools/envelope_run.py:polyte_envelope: a 120 kb genome (--genome-len
+500000 gives the record's linearity row) and a haplotype at 0.5%, 15x a
+haplotype of error-free 250 bp reads, aligned to the genome and binned
+into 10 kb regions with 1 kb halos (polyte_split_config), with
+--pool-size region threads sharing the process's card. Under torchrun
+the regions are round-robined over the ranks, each on its own card, and
+gathered over NCCL; every rank prints its own line.
+
+For these two, every backend runs with each candidate engine of
+ENGINES, engine by engine and the backends in turns: "host", the tools'
+k-mer engine, and for polyte also "auto", which puts the exact
+re-overlap passes on the card's join (workflows/polyte.py). Each run
+prints one JSON line: the
+wall, iterations, for polyte-split the regions, the final pass's
+reference candidates and the failed regions; contig counts, longest and
+total bp; the quality columns against the two haplotypes (per_haplotype:
+each contig on its best haplotype; union: every contig on the first
+haplotype, whose coordinates the second shares, so its genome fraction
+is the share of positions some contig covers); a sha256 of the contigs in
+order, and whether they equal the first engine's; the scoring kernel's
+launches, the tasks per backend and the f64-rechecked tasks, the join's
+calls and seconds per device, the peak CUDA memory, the seconds of the
+run's pieces (Breakdown) and the card. With --pool-size above 1 the
+rechecked-task count is approximate (its counter is reset by every
+verify call, on whichever thread) and the regions' pieces are summed over
+the threads. --profile also prints, before each line, cProfile's top 30
+functions of the run (its calling thread) by cumulative time.
 """
 
 from __future__ import annotations
@@ -44,9 +81,12 @@ import cProfile
 import hashlib
 import io
 import json
+import os
 import pstats
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -54,11 +94,21 @@ import numpy as np
 ENVELOPE_METRIC = "savage 10000x-coverage patched end-to-end"
 
 
+def single_end_store(seqs, quals):
+    """The tools' make_store: reads 0..N-1 added in order as single ends."""
+    from haploconduct_torch.core.reads import ReadStore
+
+    store = ReadStore()
+    for i, (sq, q) in enumerate(zip(seqs, quals)):
+        store.add_single(i, sq, q)
+    store.readcount_single = len(seqs)
+    return store
+
+
 def savage_envelope_store(genome_len=10000, total_cov=10000, split_num=15,
                           read_len=150, n_haps=4, divergence=0.03):
     """The envelope's reads and strains: (ReadStore, haplotype strings),
     drawn as tools/envelope_run.py:savage_envelope draws them (seed 0)."""
-    from haploconduct_torch.core.reads import ReadStore
     from haploconduct_torch.utils.simulate import (mutate_sequence,
                                                    random_genome,
                                                    simulate_reads)
@@ -69,10 +119,7 @@ def savage_envelope_store(genome_len=10000, total_cov=10000, split_num=15,
                        for _ in range(n_haps - 1)]
     seqs, quals = simulate_reads(haps, coverage=total_cov / n_haps,
                                  read_len=read_len, rng=rng, error_rate=0.002)
-    store = ReadStore()
-    for i, (sq, q) in enumerate(zip(seqs, quals)):
-        store.add_single(i, sq, q)
-    store.readcount_single = len(seqs)
+    store = single_end_store(seqs, quals)
     cov_per_patch = total_cov / split_num
     assert 500 < cov_per_patch < 1000, cov_per_patch
     return store, haps
@@ -264,22 +311,459 @@ def profile_envelope(store, split_num, backend):
     return profs
 
 
+POLYTE_METRIC = "polyte {kb}kb diploid end-to-end"
+SPLIT_METRIC = "polyte-split >100kb genome end-to-end"
+# tools/br_scale_bench.py:57-59's run_polyte configuration, but for the
+# backend and the candidate engine
+POLYTE_CONFIG = dict(hap_cov=20, insert_size=150, stddev=15, min_overlap_len=60,
+                     min_overlap_len_EC=77, diploid=True)
+
+
+def polyte_diploid_store(genome_len=50_000):
+    """POLYTE diploid's reads and haplotypes: (ReadStore, [hap1, hap2]),
+    drawn as tools/br_scale_bench.py:32-41 draws them (seed 0)."""
+    from haploconduct_torch.utils.simulate import (mutate_sequence,
+                                                   random_genome,
+                                                   simulate_reads)
+
+    rng = np.random.default_rng(0)
+    hap1 = random_genome(rng, genome_len)
+    hap2 = mutate_sequence(hap1, rng, sub_rate=0.01)
+    seqs, quals = simulate_reads([hap1, hap2], coverage=20, read_len=150,
+                                 rng=rng, error_rate=0.002)
+    return single_end_store(seqs, quals), [hap1, hap2]
+
+
+def polyte_envelope_store(genome_len=120_000, hap_cov=15, read_len=250):
+    """polyte-split's reads and haplotypes: (ReadStore, [genome, hap2]),
+    drawn as tools/envelope_run.py:polyte_envelope draws them (seed 1);
+    the genome is the reference the reads are binned against."""
+    from haploconduct_torch.utils.simulate import (mutate_sequence,
+                                                   random_genome,
+                                                   simulate_reads)
+
+    rng = np.random.default_rng(1)
+    genome = random_genome(rng, genome_len)
+    hap2 = mutate_sequence(genome, rng, sub_rate=0.005)
+    seqs, quals = simulate_reads([genome, hap2], coverage=hap_cov,
+                                 read_len=read_len, rng=rng, error_rate=0.0)
+    return single_end_store(seqs, quals), [genome, hap2]
+
+
+def polyte_split_config(reference, hap_cov=15, read_len=250, **kw):
+    """tools/envelope_run.py:216-222's PolyteSplitConfig; `kw` sets the
+    backend, the candidate engine, pool_size."""
+    from haploconduct_torch.workflows.polyte_split import PolyteSplitConfig
+
+    return PolyteSplitConfig(
+        hap_cov=hap_cov, insert_size=read_len, stddev=25, reference=reference,
+        split_size=10000, split_overlap=1000, min_overlap_len=100,
+        min_overlap_len_EC=2 + read_len // 2, **kw)
+
+
+def polyte_quality(contigs, haps):
+    """The quality columns against each contig's best haplotype, and
+    against the first haplotype alone, whose coordinates the second shares
+    (substitutions only): there the genome fraction is the union's."""
+    return {"per_haplotype": quality_metrics(contigs, haps),
+            "union": quality_metrics(contigs, haps[:1])}
+
+
+class Breakdown:
+    """Seconds of the named pieces of a POLYTE or polyte-split run, taken
+    by wrappers around the package's functions for the length of a `with`
+    block; the package's result classes stay as they are.
+
+    `top`, polyte-split's steps in their order (host clock): concat_reads,
+    reference_index, alignment (ops/align.py:align_store), detect_regions,
+    split_windows, binning (the windows' end to the first region's start),
+    regions (the first region's start to the last one's end: a wall, also
+    over threads), gather (allgather_indexed, under ranks), merge (to the
+    final pass's candidates), final_ref_candidates and final_pass. For
+    each scope of run_polyte ("regions", "final", "polyte"), summed over
+    its calls and threads: the calls' total, first_pass_candidates,
+    iterations (run_iteration) with their phases, branch_reduction_run
+    (BranchReduction.run, inside a phase), reoverlap_candidates (after an
+    iteration) and diploid_candidates."""
+
+    def __init__(self):
+        self.top: dict = {}
+        self.scopes: dict = {}
+        self._marks: dict = {}
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._saved: list = []
+
+    def _add(self, table, key, dt):
+        with self._lock:
+            table[key] = table.get(key, 0.0) + dt
+
+    def _mark(self, name, t):
+        with self._lock:
+            self._marks.setdefault(name, []).append(t)
+
+    def _scope(self, key, dt):
+        with self._lock:
+            table = self.scopes.setdefault(getattr(self._local, "scope", "polyte"), {})
+        self._add(table, key, dt)
+
+    def _patch(self, owner, attr, make):
+        self._saved.append((owner, attr, vars(owner)[attr]))
+        setattr(owner, attr, make(getattr(owner, attr)))
+
+    def _timed(self, name, fn, mark=None):
+        """fn timed into `top` (skipped inside the final pass's candidates,
+        which align the contigs), with its end marked."""
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                t1 = time.perf_counter()
+                if not getattr(self._local, "in_ref_candidates", False):
+                    self._add(self.top, name, t1 - t0)
+                    self._mark(mark or name, t1)
+        return call
+
+    def __enter__(self):
+        from haploconduct_torch.assemble import branch_reduction
+        from haploconduct_torch.ops import align
+        from haploconduct_torch.parallel import distributed
+        from haploconduct_torch.workflows import polyte, polyte_split, savage
+
+        local = self._local
+
+        def run_polyte(fn):
+            def call(store, cfg, preprocessing=True, original_store=None,
+                     initial_overlaps=None):
+                scope = ("final" if initial_overlaps is not None else
+                         "regions" if original_store is not None else "polyte")
+                local.scope, local.first = scope, initial_overlaps is None
+                t0 = time.perf_counter()
+                if scope == "regions":
+                    self._mark("region_start", t0)
+                try:
+                    return fn(store, cfg, preprocessing, original_store,
+                              initial_overlaps)
+                finally:
+                    t1 = time.perf_counter()
+                    self._scope("total", t1 - t0)
+                    self._scope("calls", 1)
+                    if scope == "regions":
+                        self._mark("region_end", t1)
+                    elif scope == "final":
+                        self._add(self.top, "final_pass", t1 - t0)
+            return call
+
+        def candidates(fn):
+            def call(*args, **kwargs):
+                if getattr(local, "in_loop", False):
+                    piece = "reoverlap_candidates"
+                elif getattr(local, "first", False):
+                    piece, local.first = "first_pass_candidates", False
+                else:
+                    piece = "diploid_candidates"
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    self._scope(piece, time.perf_counter() - t0)
+            return call
+
+        def loop_run(fn):
+            def call(*args, **kwargs):
+                local.in_loop = True
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    local.in_loop = False
+            return call
+
+        def iteration(fn):
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                res = fn(*args, **kwargs)
+                self._scope("iterations", time.perf_counter() - t0)
+                for phase, s in res.stats.get("phase_times", {}).items():
+                    self._scope(f"phase.{phase}", s)
+                return res
+            return call
+
+        def scoped(name):
+            def make(fn):
+                def call(*args, **kwargs):
+                    t0 = time.perf_counter()
+                    try:
+                        return fn(*args, **kwargs)
+                    finally:
+                        self._scope(name, time.perf_counter() - t0)
+                return call
+            return make
+
+        def ref_candidates(fn):
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                self._mark("final_candidates_start", t0)
+                local.in_ref_candidates = True
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    local.in_ref_candidates = False
+                    self._add(self.top, "final_ref_candidates", time.perf_counter() - t0)
+            return call
+
+        self._patch(polyte, "run_polyte", run_polyte)
+        self._patch(polyte_split, "run_polyte", run_polyte)
+        self._patch(polyte, "single_end_candidates", candidates)
+        self._patch(polyte._AssemblyLoop, "run", loop_run)
+        self._patch(polyte, "run_iteration", iteration)
+        self._patch(polyte, "concat_to_single_end", scoped("concat_reads"))
+        self._patch(branch_reduction.BranchReduction, "run",
+                    scoped("branch_reduction_run"))
+        self._patch(polyte_split, "concat_to_single_end",
+                    lambda fn: self._timed("concat_reads", fn))
+        self._patch(align.ReferenceIndex, "from_fasta",
+                    lambda fn: self._timed("reference_index", fn))
+        self._patch(align, "align_store", lambda fn: self._timed("alignment", fn))
+        self._patch(polyte_split, "detect_regions",
+                    lambda fn: self._timed("detect_regions", fn))
+        self._patch(polyte_split, "split_windows",
+                    lambda fn: self._timed("split_windows", fn))
+        self._patch(distributed, "allgather_indexed",
+                    lambda fn: self._timed("gather", fn))
+        self._patch(savage, "ref_guided_candidates", ref_candidates)
+        return self
+
+    def __exit__(self, *exc):
+        while self._saved:
+            owner, attr, orig = self._saved.pop()
+            setattr(owner, attr, orig)
+        return False
+
+    def record(self, wall):
+        """The pieces as a JSON record: polyte-split's `top` steps with the
+        gaps between the wrapped ones (binning, merge), their share of
+        `wall`, and each run_polyte scope's pieces and phases."""
+        top, marks = dict(self.top), self._marks
+        if "region_start" in marks:
+            top["regions"] = max(marks["region_end"]) - min(marks["region_start"])
+        if "split_windows" in marks:
+            after = [min(marks[k]) for k in ("region_start", "gather",
+                                               "final_candidates_start") if k in marks]
+            if after:
+                top["binning"] = min(after) - max(marks["split_windows"])
+        if "final_candidates_start" in marks:
+            before = [max(marks[k]) for k in ("region_end", "gather") if k in marks]
+            if before:
+                top["merge"] = min(marks["final_candidates_start"]) - max(before)
+        out = {}
+        if top:
+            out["top"] = top
+            out["named_share"] = sum(top.values()) / wall
+        for scope, table in self.scopes.items():
+            rec = {k: v for k, v in table.items() if not k.startswith("phase.")}
+            rec["calls"] = int(rec.get("calls", 0))
+            rec["phases"] = dict(sorted(
+                ((k[6:], v) for k, v in table.items() if k.startswith("phase.")),
+                key=lambda kv: -kv[1]))
+            out[scope] = rec
+        if "polyte" in out:
+            p = out["polyte"]
+            out["named_share"] = sum(p.get(k, 0.0) for k in (
+                "concat_reads", "first_pass_candidates", "iterations",
+                "reoverlap_candidates", "diploid_candidates")) / wall
+        return out
+
+
+def _reset_counts():
+    from haploconduct_torch.ops import kernels
+    from haploconduct_torch.ops.kmer_device import JOIN_CALLS, JOIN_SECONDS
+    from haploconduct_torch.ops.verify import BACKEND_COUNTS
+
+    for key in BACKEND_COUNTS:
+        BACKEND_COUNTS[key] = 0
+    kernels.score_tasks_cuda.launches = 0
+    JOIN_CALLS.clear()
+    JOIN_SECONDS.clear()
+
+
+def _device_record(on_card, pool_size=1):
+    """The scoring kernel's launches, the tasks per backend, the join's
+    calls and seconds, the peak CUDA memory."""
+    import torch
+
+    from haploconduct_torch.ops import kernels
+    from haploconduct_torch.ops.kmer_device import JOIN_CALLS, JOIN_SECONDS
+    from haploconduct_torch.ops.verify import BACKEND_COUNTS
+
+    return {
+        "score_tasks_launches": kernels.score_tasks_cuda.launches,
+        "backend_counts": dict(BACKEND_COUNTS),
+        "approximate_counts": ["recheck"] if pool_size > 1 else [],
+        "join_calls": dict(JOIN_CALLS),
+        "join_seconds": dict(JOIN_SECONDS),
+        "peak_cuda_mib": (torch.cuda.max_memory_allocated() / 2**20
+                          if on_card else None)}
+
+
+def _contig_strings(store):
+    return [] if store is None else [store.seq_str(i) for i in range(len(store))]
+
+
+def _size_record(seqs, prefix=""):
+    lens = [len(s) for s in seqs]
+    return {f"{prefix}contigs": len(seqs),
+            f"{prefix}longest_contig": max(lens, default=0),
+            f"{prefix}sum_bp": int(sum(lens))}
+
+
+def run_polyte_workflow(workflow, store, haps, backend, candidates, reference=None,
+                        pool_size=1, profile=False):
+    """One POLYTE diploid or polyte-split run and its JSON record."""
+    import torch
+
+    from haploconduct_torch.ops import kernels
+    from haploconduct_torch.parallel import distributed
+    from haploconduct_torch.parallel.devices import on_card as torch_on_card
+    from haploconduct_torch.workflows import polyte
+    from haploconduct_torch.workflows.polyte_split import run_polyte_split
+
+    distributed.maybe_initialize()
+    on_card = torch_on_card()
+    genome_len = len(haps[0])
+    metric = (SPLIT_METRIC if workflow == "polyte-split"
+              else POLYTE_METRIC.format(kb=genome_len // 1000))
+    out = {"metric": metric, "workflow": workflow, "backend": backend,
+           "candidates": candidates, "rank": distributed.process_index(),
+           "world_size": distributed.process_count(), "genome_len": genome_len,
+           "n_reads": len(store)}
+    if workflow == "polyte-split":
+        out["pool_size"] = pool_size
+    if on_card:
+        t0 = time.time()
+        kernels.build_all()
+        out["build_s"] = time.time() - t0
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    prof = cProfile.Profile() if profile else None
+    with Breakdown() as pieces:
+        t0 = time.time()
+        if prof:
+            prof.enable()
+        try:
+            if workflow == "polyte-split":
+                res = run_polyte_split(store, polyte_split_config(
+                    reference, backend=backend, candidates=candidates,
+                    pool_size=pool_size))
+            else:
+                # through the module: Breakdown wraps polyte.run_polyte
+                res = polyte.run_polyte(store, polyte.PolyteConfig(
+                    backend=backend, candidates=candidates, **POLYTE_CONFIG))
+        finally:
+            if prof:
+                prof.disable()
+        out["wall_s"] = time.time() - t0
+    out["breakdown"] = pieces.record(out["wall_s"])
+    out["device"] = _device_record(on_card, pool_size)
+    if workflow == "polyte-split":
+        final = _contig_strings(res.final.store if res.final else None)
+        out.update({
+            "n_regions": len(res.regions),
+            "iterations": {"final": res.final.iterations if res.final else 0,
+                           "regions": sum(r.iterations for r in res.region_results)},
+            "final_ref_candidates": res.final_ref_candidates,
+            "failed_regions": [[list(r), e] for r, e in res.failed_regions]})
+        sizes = _size_record(final)
+        out.update(final_contigs=sizes["contigs"],
+                   longest_contig=sizes["longest_contig"],
+                   sum_final_bp=sizes["sum_bp"])
+        out["digest"] = contig_digest(final)
+        t0 = time.time()
+        out["quality"] = polyte_quality(final, haps) if final else None
+    else:
+        contigs = _contig_strings(res.store)
+        diploid = _contig_strings(res.diploid_store)
+        out["iterations"] = res.iterations
+        out.update(_size_record(contigs))
+        out.update(_size_record(diploid, "diploid_"))
+        out["digest"] = contig_digest(contigs)
+        out["diploid_digest"] = contig_digest(diploid)
+        t0 = time.time()
+        out["quality"] = polyte_quality(contigs, haps) if contigs else None
+        out["diploid_quality"] = polyte_quality(diploid, haps) if diploid else None
+    out["quality_s"] = time.time() - t0
+    out["card"] = card_line()
+    if prof:
+        print(f"[profile] {workflow}, backend {backend}, candidates {candidates}: "
+              f"top 30 by cumulative time\n{_top(prof)}", flush=True)
+    return out
+
+
+DEFAULT_GENOME = {"savage": 10000, "polyte": 50_000, "polyte-split": 120_000}
+# the candidate engines each POLYTE workflow runs, the tools' first
+ENGINES = {"polyte": ("host", "auto"), "polyte-split": ("host",)}
+
+
+def polyte_main(args, backends) -> int:
+    """--workflow polyte or polyte-split: every candidate engine, every
+    backend in turns, one JSON line a run."""
+    engines = ENGINES[args.workflow]
+    t0 = time.time()
+    if args.workflow == "polyte":
+        store, haps = polyte_diploid_store(args.genome_len)
+        what = "2 haplotypes at 1%, 20x each"
+    else:
+        store, haps = polyte_envelope_store(args.genome_len)
+        what = "2 haplotypes at 0.5%, 15x each"
+    print(f"[{args.workflow}] {len(store)} reads over {args.genome_len / 1000:g} kb "
+          f"({what}), built in {time.time() - t0:.1f}s", file=sys.stderr, flush=True)
+    digests = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        reference = os.path.join(workdir, "ref.fasta")
+        with open(reference, "w") as f:
+            f.write(f">chr\n{haps[0]}\n")
+        for engine in engines:
+            for b in backends:
+                line = run_polyte_workflow(args.workflow, store, haps, b, engine,
+                                           reference, args.pool_size, args.profile)
+                digests[b, engine] = line["digest"]
+                if engine != engines[0]:
+                    line[f"identical_to_{engines[0]}"] = (
+                        line["digest"] == digests[b, engines[0]])
+                print(json.dumps(line), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--workflow", default="savage", choices=sorted(DEFAULT_GENOME))
     ap.add_argument("--backend", default="torch,native",
                     help="comma-separated backends, run in this order")
-    ap.add_argument("--genome-len", type=int, default=10000)
+    ap.add_argument("--genome-len", type=int, default=None,
+                    help="default: 10,000 (savage), 50,000 (polyte), "
+                         "120,000 (polyte-split)")
     ap.add_argument("--total-cov", type=float, default=10000)
     ap.add_argument("--split", type=int, default=15)
+    ap.add_argument("--pool-size", type=int, default=1,
+                    help="polyte-split: region threads (PolyteSplitConfig.pool_size)")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args(argv)
     backends = args.backend.split(",")
     for b in backends:
         if b not in ("torch", "native", "numpy"):
             ap.error(f"unknown backend {b!r}")
+    if args.genome_len is None:
+        args.genome_len = DEFAULT_GENOME[args.workflow]
+    if args.workflow != "polyte-split" and args.pool_size != 1:
+        ap.error("--pool-size is for --workflow polyte-split")
 
     from haploconduct_torch.parallel import distributed
 
+    if args.workflow != "savage":
+        try:
+            return polyte_main(args, backends)
+        finally:
+            distributed.shutdown()
     t0 = time.time()
     store, haps = savage_envelope_store(args.genome_len, args.total_cov, args.split)
     print(f"[envelope] {len(store)} reads = {args.total_cov:g}x over "
