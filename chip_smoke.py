@@ -22,7 +22,9 @@ Phases (each prints a line; any failure exits non-zero):
      about 44k reads) with the torch backend, which must go through the
      kernel on card 0 (mesh.default_mesh pinned to it, whatever the card
      count: savage_patch_run), against the native host engine:
-     byte-identical contigs;
+     byte-identical contigs; every matrix the cache of the packed read
+     matrix (ops/device_cache.py) hands a scoring call torch.equal to a
+     fresh upload (checked_cache), and its TRANSFER_STATS printed;
   5. the k-mer sort-join on the card: an exact pass (min overlap 100) over
      1,000 contig-like sequences of 300-3,000 bp from two haplotypes of a
      150 kb genome; the same SFO array as the join on the CPU, and the same
@@ -49,10 +51,12 @@ Phases (each prints a line; any failure exits non-zero):
   9. multi-device verification (parallel/mesh.py): (a) phase 2's
      iteration-1 stream scored by sharded_score_tasks over two shards on
      card 0, and over every visible card when there are several, against
-     one score_tasks_torch call: all four per-task columns bit-equal; (b)
-     phase 4's SAVAGE run with default_mesh() naming card 0 twice, so
-     every verify call goes through the mesh: contigs byte-identical to
-     phase 4's, every task counted under "mesh", more launches than phase 4;
+     one score_tasks_torch call: all four per-task columns bit-equal, every
+     cached matrix equal to a fresh upload; (b) phase 4's SAVAGE run with
+     default_mesh() naming card 0 twice and the cache off
+     (HC_DEVICE_CACHE=0), so every verify call goes through the mesh and
+     uploads its whole matrix: contigs byte-identical to phase 4's (the
+     cache on), every task counted under "mesh", more launches than phase 4;
  10. the JAX package's last device paths (parallel/mesh.py): (a) the
      multi-device dry run's steps 2-4 at their own sizes (its tiny
      workload: 64 reads of 96 bp at width 128) over card 0 twice, and over
@@ -389,13 +393,64 @@ def pinned_mesh(devices):
         mesh.default_mesh = saved
 
 
+@contextlib.contextmanager
+def checked_cache(torch):
+    """Inside the block every matrix the cache of the packed read matrix
+    (ops/device_cache.py) hands a scoring call is held to a fresh upload of
+    the same reads (score.pack_for_device): torch.equal, or the call
+    raises. Yields the number of matrices checked so far ({"matrices": n})."""
+    from haploconduct_torch.ops import device_cache
+    from haploconduct_torch.ops.score import pack_for_device
+
+    checked = {"matrices": 0}
+    cached = device_cache.comb_for_devices
+
+    def comb_for_devices(codes, quals, lens_by_row, combined, devices):
+        combs = cached(codes, quals, lens_by_row, combined, devices)
+        for comb in combs:
+            if not torch.equal(comb, pack_for_device(codes, quals, comb.device)):
+                raise AssertionError("the cached matrix differs from a fresh upload "
+                                     f"on {comb.device} ({codes.shape[0]} rows)")
+            checked["matrices"] += 1
+        return combs
+
+    device_cache.comb_for_devices = comb_for_devices
+    try:
+        yield checked
+    finally:
+        device_cache.comb_for_devices = cached
+
+
+@contextlib.contextmanager
+def cache_off():
+    """HC_DEVICE_CACHE=0 inside the block: every scoring call uploads its
+    whole matrix."""
+    saved = os.environ.get("HC_DEVICE_CACHE")
+    os.environ["HC_DEVICE_CACHE"] = "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["HC_DEVICE_CACHE"]
+        else:
+            os.environ["HC_DEVICE_CACHE"] = saved
+
+
+def transfers_line(stats) -> str:
+    return (f"full={stats['full_bytes'] / 2**20:.2f}MiB uploaded="
+            f"{stats['uploaded_bytes'] / 2**20:.2f}MiB over {stats['iterations']} "
+            f"matrices, rows reused={stats['reused_rows']} "
+            f"changed={stats['changed_rows']}")
+
+
 def savage_patch_run(torch, patch, backend, devices):
     """SAVAGE a -> b -> c on `patch` with split_num=1, the torch backend
     scoring on the list `devices` whatever cards are visible: phase 4 names
     one, phase 9 (b) card 0 twice. Returns the result, its wall, and the
-    scoring kernel's launches, the tasks per backend and the peak CUDA
-    memory of the run."""
-    from haploconduct_torch.ops import kernels
+    scoring kernel's launches, the tasks per backend, the packed matrix's
+    transfers (device_cache.TRANSFER_STATS) and the peak CUDA memory of
+    the run."""
+    from haploconduct_torch.ops import device_cache, kernels
     from haploconduct_torch.ops.verify import BACKEND_COUNTS
     from haploconduct_torch.workflows.savage import SavageConfig, run_savage
 
@@ -405,12 +460,13 @@ def savage_patch_run(torch, patch, backend, devices):
     for key in BACKEND_COUNTS:
         BACKEND_COUNTS[key] = 0
     kernels.score_tasks_cuda.launches = 0
+    device_cache.reset_stats()
     with pinned_mesh(devices):
         t0 = time.perf_counter()
         res = run_savage(patch, SavageConfig(split_num=1, backend=backend))
         wall = time.perf_counter() - t0
     return dict(res=res, wall=wall, launches=kernels.score_tasks_cuda.launches,
-                counts=dict(BACKEND_COUNTS),
+                counts=dict(BACKEND_COUNTS), transfers=dict(device_cache.TRANSFER_STATS),
                 peak=torch.cuda.max_memory_allocated() if on_card else 0)
 
 
@@ -844,14 +900,15 @@ def phase_mesh_stream(torch, reps=3):
         cards = mesh.default_mesh()
         calls[f"{len(cards)} cards"] = lambda th: mesh.sharded_score_tasks(
             *args, mismatch_thresh=th, mesh=cards)
-    for th in (0.0, far_threshold()):
-        one = calls["one call"](th)
-        for name, call in calls.items():
-            got = call(th)
-            for col in ("sum_log", "counted", "mismatches", "rejected"):
-                if not np.array_equal(getattr(got, col), getattr(one, col)):
-                    raise AssertionError(f"mesh ({name}, threshold {th}): {col} "
-                                         "differs from one score_tasks_torch call")
+    with checked_cache(torch) as checked:
+        for th in (0.0, far_threshold()):
+            one = calls["one call"](th)
+            for name, call in calls.items():
+                got = call(th)
+                for col in ("sum_log", "counted", "mismatches", "rejected"):
+                    if not np.array_equal(getattr(got, col), getattr(one, col)):
+                        raise AssertionError(f"mesh ({name}, threshold {th}): {col} "
+                                             "differs from one score_tasks_torch call")
     seconds = {name: [] for name in calls}
     for _ in range(reps):
         for name, call in calls.items():
@@ -860,7 +917,8 @@ def phase_mesh_stream(torch, reps=3):
             seconds[name].append(time.perf_counter() - t0)
     log(f"[mesh_a] iteration-1 stream, {len(args[3])} tasks: every sharding "
         f"bit-equal to one call on all four columns (thresholds 0 and "
-        f"{far_threshold():.4f}); call seconds (host clock, {reps} each): "
+        f"{far_threshold():.4f}), {checked['matrices']} cached matrices equal "
+        f"to a fresh upload; call seconds (host clock, {reps} each): "
         + "; ".join(f"{k} {', '.join(f'{v:.3f}' for v in vs)}"
                     for k, vs in seconds.items()))
 
@@ -871,9 +929,14 @@ def phase_mesh_savage(torch, patch, want, tasks, launches):
     `want`, `tasks` and `launches` are phase 4's torch contigs, tasks and
     kernel launches."""
     card0 = torch.device("cuda", 0)
-    run = savage_patch_run(torch, patch, "torch", [card0, card0])
+    with cache_off():
+        run = savage_patch_run(torch, patch, "torch", [card0, card0])
     res, wall = run["res"], run["wall"]
     mesh_launches, counts = run["launches"], run["counts"]
+    log(f"[mesh_b] HC_DEVICE_CACHE=0: {transfers_line(run['transfers'])}")
+    if run["transfers"]["reused_rows"] or \
+            run["transfers"]["uploaded_bytes"] != run["transfers"]["full_bytes"]:
+        raise AssertionError("HC_DEVICE_CACHE=0 did not upload every matrix whole")
     verify_s = sum(r.phase_times.get("verify", 0.0)
                    for r in (res.stage_a, res.stage_b, res.stage_c) if r is not None)
     log(f"[mesh_b] SAVAGE a->b->c, default_mesh() = [cuda:0, cuda:0]: "
@@ -887,7 +950,8 @@ def phase_mesh_savage(torch, patch, want, tasks, launches):
     if mesh_launches <= launches:
         raise AssertionError("the mesh run launched the kernel no more often "
                              "than phase 4")
-    log("[mesh] contigs byte-identical to phase 4, every task through the mesh")
+    log("[mesh] contigs byte-identical to phase 4 (cache on) with the cache off, "
+        "every task through the mesh")
     return mesh_launches
 
 
@@ -1153,10 +1217,13 @@ def main() -> int:
     runs = {}
     card0 = torch.device("cuda", 0)
     for backend in ("torch", "native"):
-        run = savage_patch_run(torch, patch, backend, [card0])
+        with (checked_cache(torch) if backend == "torch"
+              else contextlib.nullcontext()) as checked:
+            run = savage_patch_run(torch, patch, backend, [card0])
         res, wall = run["res"], run["wall"]
         if backend == "torch":
             launches, counts, peak = run["launches"], run["counts"], run["peak"]
+            transfers, n_checked = run["transfers"], checked["matrices"]
         t = res.timings
         bc = sum(v for k, v in t.items() if k.startswith(("stage_b", "stage_c")))
         verify_s = sum(r.phase_times.get("verify", 0.0)
@@ -1173,6 +1240,12 @@ def main() -> int:
     log(f"[savage_torch] kernel launches={launches} tasks={counts['torch']} "
         f"rechecked_tasks={counts['recheck']} numpy_tasks={counts['numpy']} "
         f"native_tasks={counts['native']} peak_cuda_mem={peak / 2**20:.1f}MiB")
+    log(f"[savage_torch] the packed matrix kept on the card (ops/device_cache.py): "
+        f"{transfers_line(transfers)}; {n_checked} cached matrices, each "
+        "torch.equal to a fresh upload")
+    if n_checked == 0 or n_checked != transfers["iterations"]:
+        raise AssertionError(f"{n_checked} cached matrices checked of "
+                             f"{transfers['iterations']}")
     if launches == 0:
         raise AssertionError("the main path never launched the scoring kernel")
     if counts["numpy"] or counts["native"]:

@@ -42,6 +42,7 @@ import torch
 
 from ..core.reads import N_CODE, PAD_CODE
 from ..parallel.devices import default_device
+from . import device_cache
 from .kernels import score_tasks_cuda
 
 RECHECK_MARGIN = 2e-3  # |score - threshold| below this -> redo in f64
@@ -203,15 +204,20 @@ def score_tasks_native(
 # Torch device backend (float32 lanes, f64 per-task sums)
 # --------------------------------------------------------------------------
 
-def pack_for_device(codes: np.ndarray, quals: np.ndarray, device) -> torch.Tensor:
-    """(R, W) codes/quals -> (R, RW) int16 code | qual << 3 words on
-    `device`, RW = W rounded up to a multiple of ROW_ALIGN; the pad words
-    are PAD_CODE with qual 0, so every row starts on a 16-byte boundary."""
+def pack_host(codes: np.ndarray, quals: np.ndarray) -> np.ndarray:
+    """(R, W) codes/quals -> (R, RW) int16 code | qual << 3 words on the
+    host, RW = W rounded up to a multiple of ROW_ALIGN; the pad words are
+    PAD_CODE with qual 0, so every row starts on a 16-byte boundary."""
     r, w = codes.shape
     rw = -(-w // ROW_ALIGN) * ROW_ALIGN
     comb = np.full((r, rw), PAD_CODE, dtype=np.int16)
     comb[:, :w] = codes.astype(np.int16) | (quals.astype(np.int16) << 3)
-    return torch.from_numpy(comb).to(device)
+    return comb
+
+
+def pack_for_device(codes: np.ndarray, quals: np.ndarray, device) -> torch.Tensor:
+    """pack_host(codes, quals) uploaded whole to `device`."""
+    return torch.from_numpy(pack_host(codes, quals)).to(device)
 
 
 def segment_tasks(row_a, row_b, pos, L):
@@ -390,7 +396,10 @@ def score_tasks_torch(
     if len(row_a) == 0:
         return _empty_scores()
     lens, row_a, row_b, pos64 = check_tasks(codes, lens_by_row, row_a, row_b, pos)
-    comb = pack_for_device(codes, quals, device)
+    # the matrix stays on the device across calls: only rows that changed
+    # since this thread's last call travel (ops/device_cache.py)
+    comb = device_cache.comb_for_device(codes, quals, lens, pack_host(codes, quals),
+                                        device)
     cols = [torch.from_numpy(c.astype(np.int32)).to(device)
             for c in (lens, row_a, row_b, pos64)]
     sums = [c.cpu().numpy() for c in score_tasks(comb, *cols, float(mismatch_thresh))]

@@ -302,8 +302,9 @@ def combine_scores(
     return edges
 
 
-# test/diagnostic instrumentation: counters of how many tasks/overlaps the
-# exactness machinery re-scored in f64 during the last verify_overlaps call
+# test/diagnostic instrumentation: the tasks/overlaps the exactness
+# machinery re-scored in f64 during the last verify_overlaps call to end
+# (under region threads, any thread's); BACKEND_COUNTS["recheck"] sums them
 RECHECK_STATS = {"tasks": 0, "overlaps": 0}
 # cumulative tasks scored per backend; "mesh" counts the torch backend's
 # tasks sharded over several devices, "recheck" the tasks the f64 oracle
@@ -346,8 +347,8 @@ def verify_overlaps(
     args = (packed.codes, packed.quals, lens_by_row, plan.row_first, plan.row_second, plan.pos)
     kw = dict(mismatch_thresh=s.mismatch, min_read_len=s.min_read_len)
     n_tasks = len(plan.row_first)
-    RECHECK_STATS["tasks"] = 0
-    RECHECK_STATS["overlaps"] = 0
+    # this call's rechecks, counted locally: region threads verify at once
+    rechecked = {"tasks": 0, "overlaps": 0}
     margin = RECHECK_MARGIN
     ts = None
     if s.backend == "native":
@@ -373,7 +374,7 @@ def verify_overlaps(
         ts = ts._replace(score=np.minimum(np.asarray(ts.score, np.float64), 1.0))
         ts = _exact_mismatch_rates(plan, ts, lens_by_row, kw)
         if exact_path:
-            ts = _recheck_near_threshold(plan, ts, args, kw, s, margin)
+            ts = _recheck_near_threshold(plan, ts, args, kw, s, rechecked, margin)
 
     edges_all = combine_scores(ov, plan, meta, ts, s)
 
@@ -381,12 +382,14 @@ def verify_overlaps(
         borderline_ov = (_near_threshold(edges_all["score"], s.edge_threshold, margin)
                          | _near_threshold(edges_all["score"], s.ov_threshold, margin))
         if np.any(borderline_ov):
-            RECHECK_STATS["overlaps"] = int(np.sum(borderline_ov))
-            ts = _recheck_tasks_of(plan, ts, args, kw, borderline_ov)
+            rechecked["overlaps"] = int(np.sum(borderline_ov))
+            ts = _recheck_tasks_of(plan, ts, args, kw, borderline_ov, rechecked)
             # patch only the rechecked overlaps' rows
             idx = np.flatnonzero(borderline_ov)
             edges_all[idx] = combine_scores(ov, plan, meta, ts, s, sel=idx)
-    _count("recheck", RECHECK_STATS["tasks"])
+    with _counts_lock:
+        BACKEND_COUNTS["recheck"] += rechecked["tasks"]
+        RECHECK_STATS.update(rechecked)
 
     score = edges_all["score"]
     mism = edges_all["mismatch_rate"]
@@ -457,26 +460,29 @@ def _near_threshold(score: np.ndarray, thresh: float,
 
 
 def _recheck_near_threshold(plan: TaskPlan, ts: TaskScores, args, kw,
-                            s: Settings,
+                            s: Settings, rechecked: dict,
                             margin: float = RECHECK_MARGIN) -> TaskScores:
     """Re-score near-threshold tasks with the f64 oracle."""
     borderline_task = (_near_threshold(ts.score, s.edge_threshold, margin)
                        | _near_threshold(ts.score, s.ov_threshold, margin))
     if not np.any(borderline_task):
         return ts
-    return _recheck_task_idx(plan, ts, args, kw, np.flatnonzero(borderline_task))
+    return _recheck_task_idx(plan, ts, args, kw, np.flatnonzero(borderline_task),
+                             rechecked)
 
 
-def _recheck_tasks_of(plan: TaskPlan, ts: TaskScores, args, kw, ov_mask: np.ndarray) -> TaskScores:
+def _recheck_tasks_of(plan: TaskPlan, ts: TaskScores, args, kw, ov_mask: np.ndarray,
+                      rechecked: dict) -> TaskScores:
     """Re-score (in f64) every task belonging to the masked overlaps."""
     t1 = plan.t1_of[ov_mask]
     t2 = plan.t2_of[ov_mask]
     idx = np.unique(np.concatenate([t1, t2[t2 >= 0]]))
-    return _recheck_task_idx(plan, ts, args, kw, idx)
+    return _recheck_task_idx(plan, ts, args, kw, idx, rechecked)
 
 
-def _recheck_task_idx(plan: TaskPlan, ts: TaskScores, args, kw, idx: np.ndarray) -> TaskScores:
-    RECHECK_STATS["tasks"] += len(idx)
+def _recheck_task_idx(plan: TaskPlan, ts: TaskScores, args, kw, idx: np.ndarray,
+                      rechecked: dict) -> TaskScores:
+    rechecked["tasks"] += len(idx)
     codes, quals, lens_by_row = args[0], args[1], args[2]
     redo = score_tasks_numpy(
         codes, quals, lens_by_row,

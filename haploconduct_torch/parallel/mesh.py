@@ -9,13 +9,14 @@ and an entry may repeat. Its device paths:
   packed matrix on every device, shards the subtask stream over the mesh's
   data axis and scans the Pallas kernel over 32k-subtask chunks on each
   device. Here the kernel takes whole tasks, so that device code becomes
-  one launch per shard: the matrix is uploaded once to each distinct
-  device, the task stream is cut into contiguous shards of about equal
-  lanes, one per entry of the mesh, every shard is launched before any
-  result is copied back (so distinct cards run at the same time), and the
-  per-task sums are copied back in task order and finished once on the
-  host. A task is scored whole by one launch, so its sums are those of a
-  single call.
+  one launch per shard: the matrix is kept on each distinct device
+  across calls (ops/device_cache.py: only rows that changed since that
+  device's last call are uploaded), the task stream is cut into
+  contiguous shards of about equal lanes, one per entry of the mesh,
+  every shard is launched before any result is copied back (so distinct
+  cards run at the same time), and the per-task sums are copied back in
+  task order and finished once on the host. A task is scored whole by
+  one launch, so its sums are those of a single call.
 - `sharded_verify` (reference :545-574, over `sharded_score_fn`): the four
   per-task columns of `sharded_score_tasks` in the reference's f32/i32
   types. The reference sums all W lanes of a task in one f32 sum; here
@@ -47,10 +48,12 @@ import numpy as np
 import torch
 
 from ..core.reads import PAD_CODE
+from ..ops import device_cache
 from ..ops.join_verify import check_join_inputs, join_verify, kmer_queries
 from ..ops.kmer_device import kmer_hashes, kmer_table
 from ..ops.score import (TaskScores, _empty_scores, check_device, check_tasks,
-                         finish_task_scores, pack_for_device, score_tasks)
+                         finish_task_scores, pack_for_device, pack_host,
+                         score_tasks)
 from .devices import default_devices
 
 
@@ -125,16 +128,18 @@ def sharded_score_tasks(
     bounds = shard_bounds(np.maximum(np.minimum(len_a - pos64, len_b), 0),
                           len(devices))
     # every upload first, then every launch: a card's launch waits on
-    # nothing but its own uploads
-    comb = pack_for_device(codes, quals, "cpu")
+    # nothing but its own uploads. Each distinct device keeps its matrix
+    # across calls, and only changed rows travel (ops/device_cache.py)
+    distinct = list(dict.fromkeys(dev for dev, s, e in zip(devices, bounds[:-1],
+                                                           bounds[1:]) if e > s))
+    combs = device_cache.comb_for_devices(codes, quals, lens, pack_host(codes, quals),
+                                          distinct)
     lens32 = torch.from_numpy(lens.astype(np.int32))
-    on_device = {}
+    on_device = {dev: (comb, lens32.to(dev)) for dev, comb in zip(distinct, combs)}
     shards = []
     for dev, s, e in zip(devices, bounds[:-1], bounds[1:]):
         if e == s:
             continue
-        if dev not in on_device:
-            on_device[dev] = (comb.to(dev), lens32.to(dev))
         shards.append((dev, slice(s, e),
                        [torch.from_numpy(c[s:e].astype(np.int32)).to(dev)
                         for c in (row_a, row_b, pos64)]))

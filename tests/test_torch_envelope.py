@@ -2,8 +2,9 @@
 against the JAX package's tools/envelope_run.py:savage_envelope: the same
 reads, and on a small envelope the same stage a/b/c contigs and quality
 columns as the JAX package's numpy backend; the JSON line's keys;
-chip_smoke.py phase 11's input; and phase 4's run, which scores on the one
-device it names however many devices default_mesh() lists."""
+chip_smoke.py phase 11's input; phase 4's run, which scores on the one
+device it names however many devices default_mesh() lists; and the checks
+of phases 4 and 9 on the cache of the packed read matrix."""
 
 import contextlib
 import importlib.util
@@ -171,3 +172,38 @@ def test_chip_smoke_phase4_scores_on_its_one_device_whatever_the_mesh(monkeypatc
     assert meshed["counts"]["torch"] == 0
     assert chip_smoke.contig_sets(meshed["res"]) == chip_smoke.contig_sets(run["res"])
     assert mesh.default_mesh() == two
+
+
+def test_chip_smoke_checks_every_cached_matrix_and_turns_the_cache_off(monkeypatch):
+    """Phase 4's run under checked_cache holds every matrix of the cache
+    of the packed read matrix to a fresh upload and counts them; phase 9
+    (b)'s run under cache_off uploads every matrix whole; both give the
+    same contigs, and HC_DEVICE_CACHE is restored after each block. A
+    matrix that differs from a fresh upload fails the check."""
+    import torch
+
+    from haploconduct_torch.ops import device_cache
+
+    monkeypatch.delenv("HC_DEVICE_CACHE", raising=False)
+    cpu = torch.device("cpu")
+    store = chip_smoke.dryrun_store()
+    with chip_smoke.checked_cache(torch) as checked:
+        on = chip_smoke.savage_patch_run(torch, store, "torch", [cpu])
+    assert checked["matrices"] == on["transfers"]["iterations"] > 0
+    assert on["transfers"]["reused_rows"] > 0
+    assert device_cache.comb_for_devices.__module__ == device_cache.__name__
+    with chip_smoke.cache_off():
+        off = chip_smoke.savage_patch_run(torch, store, "torch", [cpu, cpu])
+    assert "HC_DEVICE_CACHE" not in os.environ
+    assert off["transfers"]["reused_rows"] == 0
+    assert off["transfers"]["uploaded_bytes"] == off["transfers"]["full_bytes"] > 0
+    assert chip_smoke.contig_sets(off["res"]) == chip_smoke.contig_sets(on["res"])
+    assert "uploaded=" in chip_smoke.transfers_line(on["transfers"])
+
+    def stale(codes, quals, lens_by_row, combined, devices):
+        return [torch.zeros(combined.shape, dtype=torch.int16) for _ in devices]
+
+    monkeypatch.setattr(device_cache, "comb_for_devices", stale)
+    with pytest.raises(AssertionError, match="differs from a fresh upload"):
+        with chip_smoke.checked_cache(torch):
+            chip_smoke.savage_patch_run(torch, store, "torch", [cpu])

@@ -7,7 +7,10 @@ slot scores equal (decided by exact integers), scores within 1e-5 (f32
 sums of log p in other orders), the slot count equal but for slots within
 1e-5 of the threshold, at widths of one tile a row and of several, with
 phreds past its table, rows whose slots are all invalid and a shard that
-starts past row 0. Every test here needs a CUDA card and skips
+starts past row 0. The cache of the packed read matrix
+(ops/device_cache.py): each matrix it assembles on the card equal to a
+fresh upload, alone, through a mesh and from two threads. Every test
+here needs a CUDA card and skips
 without one. This file imports no jax, so on a machine without jax run it
 alone, past the root conftest:
 
@@ -215,3 +218,93 @@ def test_sharded_assembly_step_on_cards(cuda_device, shape):
     part = sharded_assembly_step([cuda_device], codes[:n], quals[:n], lens[:n], **kw)
     np.testing.assert_array_equal(part[0] == 0, cpu[0] == 0)
     np.testing.assert_allclose(part[0], cpu[0], rtol=0, atol=1e-5)
+
+
+def _cache_inputs():
+    """Four iterations' (codes, quals, lens_by_row) for the cache of the
+    packed read matrix: 3,000 reads; then 2,400 of them forwarded, 200
+    stored reverse-complemented and 400 longer units (the width grows);
+    the first matrix again; its first 1,000 units (the width shrinks)."""
+    from haploconduct_torch.core.reads import ReadStore, revcomp_codes
+
+    rng = np.random.default_rng(8)
+
+    def unit(n):
+        return rng.integers(0, 4, n).astype(np.int8), rng.integers(2, 41, n).astype(np.uint8)
+
+    units = [unit(int(n)) for n in rng.integers(100, 151, 3000)]
+    nxt = (units[:2400] + [(revcomp_codes(c), q[::-1].copy()) for c, q in units[2400:2600]]
+           + [unit(int(n)) for n in rng.integers(200, 301, 400)])
+    out = []
+    for us in (units, nxt, units, units[:1000]):
+        store = ReadStore()
+        for i, (c, q) in enumerate(us):
+            store.add_single_codes(i, c, q)
+        store.readcount_single = len(us)
+        packed = store.pack()
+        out.append((packed.codes, packed.quals, np.concatenate([packed.lens, packed.lens])))
+    return out
+
+
+@pytest.mark.cuda
+def test_cached_matrix_on_card_equals_a_fresh_upload(cuda_device):
+    """Each iteration's matrix, assembled on the card from the last one's
+    rows and the changed rows, is torch.equal to a fresh upload, through
+    comb_for_device and through a mesh of card 0 twice; every iteration
+    after the first reuses rows, and the scores equal the cache off's."""
+    from haploconduct_torch.ops import device_cache
+    from haploconduct_torch.ops.score import pack_host
+
+    card = torch.device("cuda", torch.cuda.current_device())
+    seq = _cache_inputs()
+    device_cache.reset_stats()
+    for i, (codes, quals, lens) in enumerate(seq):
+        got = device_cache.comb_for_device(codes, quals, lens, pack_host(codes, quals), card)
+        assert got.device == card and got.data_ptr() % 16 == 0
+        assert torch.equal(got, pack_for_device(codes, quals, card)), i
+    stats = dict(device_cache.TRANSFER_STATS)
+    assert stats["iterations"] == 4 and stats["reused_rows"] == 2 * (2600 + 2600 + 1000)
+    assert stats["uploaded_bytes"] < stats["full_bytes"]
+    rng = np.random.default_rng(2)
+    for codes, quals, lens in seq:
+        tasks = random_tasks(rng, lens, 20_000, 60)
+        on = sharded_score_tasks(codes, quals, lens, *tasks, mesh=[card, card])
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("HC_DEVICE_CACHE", "0")
+            off = score_tasks_torch(codes, quals, lens, *tasks, device=card)
+        for col in ("sum_log", "counted", "mismatches", "rejected"):
+            np.testing.assert_array_equal(getattr(on, col), getattr(off, col))
+
+
+@pytest.mark.cuda
+def test_cached_matrices_of_two_threads_on_card(cuda_device):
+    """Two threads that alternate between their own matrices on one card
+    in lockstep each get their exact matrix."""
+    import threading
+
+    from haploconduct_torch.ops import device_cache
+    from haploconduct_torch.ops.score import pack_host
+
+    seq = _cache_inputs()
+    card = torch.device("cuda", torch.cuda.current_device())
+    barrier = threading.Barrier(2, timeout=60)
+    errors = []
+
+    def work(t):
+        try:
+            for i in range(6):
+                barrier.wait()
+                codes, quals, lens = seq[(2 * t + i) % 4]
+                got = device_cache.comb_for_device(codes, quals, lens,
+                                                   pack_host(codes, quals), card)
+                if not torch.equal(got, pack_for_device(codes, quals, card)):
+                    errors.append((t, i))
+        except Exception as e:  # noqa: BLE001  (reported below)
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(t,)) for t in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert errors == []

@@ -182,3 +182,71 @@ def test_auto_backend_verify_and_unknown_backend(monkeypatch):
     assert BACKEND_COUNTS["torch"] - before == res.n_tasks
     with pytest.raises(ValueError):
         verify_overlaps(store, packed, ov, Settings(backend="jax"))
+
+
+def test_recheck_count_is_exact_when_two_threads_verify_at_once(monkeypatch):
+    """Two verify calls on region threads, both inside their f64 recheck at
+    the same moment (a barrier in the oracle's first call on each thread),
+    add to BACKEND_COUNTS["recheck"] exactly what the two calls add one
+    after the other."""
+    import threading
+
+    from haploconduct_torch.ops import verify as V
+
+    calls = []
+    for seed in (4, 6):
+        rng = np.random.default_rng(seed)
+        store, _ = build_random_store(rng, n_single=10, n_paired=6)
+        ov = random_overlaps(rng, store, 150)
+        pstore = port_store(store)
+        packed = pstore.pack()
+        ts = score_tasks_numpy(*_task_args(store, store.pack(), ov))
+        on = np.sort(ts.score[(ts.score > 0.05) & (ts.score < 0.95)])
+        # thresholds on scores the tasks give, so some tasks sit on them
+        s = PortSettings(backend="torch", exact=True,
+                         edge_threshold=float(on[len(on) // 2]),
+                         ov_threshold=float(on[len(on) // 4 + seed]))
+        calls.append((pstore, packed, ov, s))
+
+    before = BACKEND_COUNTS["recheck"]
+    alone = []
+    for pstore, packed, ov, s in calls:
+        port_verify(pstore, packed, ov, s)
+        alone.append(RECHECK_STATS["tasks"])
+    sequential = BACKEND_COUNTS["recheck"] - before
+    assert sequential == sum(alone) and min(alone) > 0 and alone[0] != alone[1]
+
+    barrier = threading.Barrier(2, timeout=60)
+    local = threading.local()
+    oracle = V.score_tasks_numpy
+
+    def meeting_oracle(*args, **kw):
+        if not getattr(local, "met", False):
+            local.met = True
+            barrier.wait()
+        return oracle(*args, **kw)
+
+    monkeypatch.setattr(V, "score_tasks_numpy", meeting_oracle)
+    errors = []
+
+    def run(call):
+        try:
+            port_verify(*call)
+        except Exception as e:  # noqa: BLE001  (reported below)
+            errors.append(e)
+
+    before = BACKEND_COUNTS["recheck"]
+    threads = [threading.Thread(target=run, args=(c,)) for c in calls]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert errors == []
+    assert BACKEND_COUNTS["recheck"] - before == sequential
+    assert RECHECK_STATS["tasks"] in alone
+
+
+def _task_args(store, packed, ov):
+    plan, _ = plan_tasks(store, packed, ov)
+    lens = np.concatenate([packed.lens, packed.lens])
+    return packed.codes, packed.quals, lens, plan.row_first, plan.row_second, plan.pos

@@ -45,6 +45,21 @@ the verify-phase seconds of stages a, b and c and their sum, the seconds
 inside the torch backend's scoring calls (ops/verify.py:
 score_tasks_torch), the kernel's launches and the contig counts. All runs
 must give the same contigs.
+
+    python3 torch_ab.py cache [--mesh one,all] [--pairs 2]
+
+SAVAGE a -> b -> c on chip_smoke.py's envelope patch, torch backend, with
+the cache of the packed read matrix on and off (ops/device_cache.py;
+HC_DEVICE_CACHE=0), in turns (on, off, then off, on, ...), each run in a
+fresh process of this checkout. For each --mesh entry: "one" pins the
+mesh to card 0, so verify calls score_tasks_torch; "all" leaves every
+visible card in it, so with several cards verify goes through
+parallel/mesh.py:sharded_score_tasks. One JSON line a run: the mesh, the
+cache, the card, the wall seconds of run_savage, the verify-phase seconds,
+the seconds inside the scoring calls (whichever route) and of the first
+one (stage a's iteration 1), the number of calls, TRANSFER_STATS, the
+kernel's launches, the contig counts and a digest. All runs must give the
+same contigs.
 """
 
 from __future__ import annotations
@@ -52,6 +67,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -369,6 +385,86 @@ def savage_run(tree: str, backend: str, card: str) -> dict:
     return out
 
 
+CACHE_RUN = r"""
+import hashlib, json, sys, time
+sys.path.insert(0, ".")
+import torch
+import chip_smoke
+from haploconduct_torch.ops import device_cache, kernels, verify
+from haploconduct_torch.parallel import mesh
+from haploconduct_torch.workflows.savage import SavageConfig, run_savage
+
+which, card = sys.argv[1], sys.argv[2]
+calls = []
+
+
+def timed(fn):
+    def call(*args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)  # numpy results: the cards are done
+        calls.append(time.perf_counter() - t)
+        return out
+    return call
+
+
+verify.score_tasks_torch = timed(verify.score_tasks_torch)
+mesh.sharded_score_tasks = timed(mesh.sharded_score_tasks)
+kernels.build_all()
+kernels.load()
+devices = mesh.default_mesh() if which == "all" else [torch.device("cuda", 0)]
+for dev in devices:
+    torch.zeros(1, device=dev)
+store = chip_smoke.envelope_patch()
+device_cache.reset_stats()
+with chip_smoke.pinned_mesh(devices):
+    t0 = time.perf_counter()
+    res = run_savage(store, SavageConfig(split_num=1, backend="torch"))
+    wall = time.perf_counter() - t0
+print(json.dumps({"mesh": which, "devices": len(devices),
+                  "cache": device_cache.CombCache().enabled(), "card": card,
+                  "wall_s": wall,
+                  "verify_s": sum(r.phase_times.get("verify", 0.0)
+                                  for r in (res.stage_a, res.stage_b, res.stage_c)),
+                  "score_call_s": sum(calls), "first_call_s": calls[0],
+                  "calls": len(calls), "transfers": dict(device_cache.TRANSFER_STATS),
+                  "launches": kernels.score_tasks_cuda.launches,
+                  "contigs": [len(res.contigs(s)[0]) for s in "abc"],
+                  "digest": hashlib.sha256("\n".join(res.contigs("c")[1]).encode()
+                                           ).hexdigest()[:16]}))
+"""
+
+
+def cache_run(which: str, cache_on: bool, card: str) -> dict:
+    env = dict(os.environ, HC_TORCH_DEVICE="cuda")
+    if cache_on:
+        env.pop("HC_DEVICE_CACHE", None)
+    else:
+        env["HC_DEVICE_CACHE"] = "0"
+    proc = subprocess.run([sys.executable, "-c", CACHE_RUN, which, card], cwd=REPO,
+                          env=env, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"mesh {which}, cache {cache_on} failed:\n{proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def cache_ab(args) -> int:
+    card = card_name()
+    runs = []
+    for i in range(args.pairs):
+        for which in args.mesh.split(","):
+            for cache_on in ((True, False) if i % 2 == 0 else (False, True)):
+                runs.append(cache_run(which, cache_on, card))
+    if len({(tuple(r["contigs"]), r["digest"]) for r in runs}) != 1:
+        raise AssertionError("the runs gave different contigs")
+    for r in runs:
+        t = r["transfers"]
+        if not r["cache"] and (t["reused_rows"] or t["uploaded_bytes"] != t["full_bytes"]):
+            raise AssertionError("a run with the cache off reused rows")
+    return 0
+
+
 def verify_ab(args) -> int:
     card = card_name()
     a, b = args.trees
@@ -395,6 +491,9 @@ def main() -> int:
     v = sub.add_parser("verify")
     v.add_argument("--trees", nargs=2, required=True, metavar=("A", "B"))
     v.add_argument("--pairs", type=int, default=3)
+    c = sub.add_parser("cache")
+    c.add_argument("--mesh", default="one")
+    c.add_argument("--pairs", type=int, default=2)
     args = ap.parse_args()
     import torch
 
@@ -402,7 +501,8 @@ def main() -> int:
         print("needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
-    return {"kernel": kernel_ab, "join": join_ab, "verify": verify_ab}[args.cmd](args)
+    return {"kernel": kernel_ab, "join": join_ab, "verify": verify_ab,
+            "cache": cache_ab}[args.cmd](args)
 
 
 if __name__ == "__main__":

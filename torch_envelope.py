@@ -24,7 +24,8 @@ sha256 of each stage's contigs in order (so runs in different processes
 or on different machines can be compared), the quality columns of
 workflows/evaluate.py against the 4 strains (SNP recovery at stage c),
 stage c rerun at merge_contigs=0.01, and for torch the scoring kernel's
-launches, the tasks per backend, the f64-rechecked tasks and the peak
+launches, the tasks per backend, the f64-rechecked tasks, the packed
+matrix's transfers (ops/device_cache.py:TRANSFER_STATS) and the peak
 CUDA memory; with the card's name and power limit as nvidia-smi gives
 them. The torch backend runs on the card, on the CPU only under
 HC_TORCH_DEVICE=cpu (parallel/devices.py).
@@ -65,12 +66,10 @@ each contig on its best haplotype; union: every contig on the first
 haplotype, whose coordinates the second shares, so its genome fraction
 is the share of positions some contig covers); a sha256 of the contigs in
 order, and whether they equal the first engine's; the scoring kernel's
-launches, the tasks per backend and the f64-rechecked tasks, the join's
-calls and seconds per device, the peak CUDA memory, the seconds of the
+launches, the tasks per backend, the f64-rechecked tasks and the packed
+matrix's transfers, the join's calls and seconds per device, the peak CUDA memory, the seconds of the
 run's pieces (Breakdown) and the card. With --pool-size above 1 the
-rechecked-task count is approximate (its counter is reset by every
-verify call, on whichever thread) and the regions' pieces are summed over
-the threads. --profile also prints, before each line, cProfile's top 30
+regions' pieces are summed over the threads; every count is exact. --profile also prints, before each line, cProfile's top 30
 functions of the run (its calling thread) by cumulative time.
 """
 
@@ -197,7 +196,7 @@ def run_envelope(store, haps, backend, split_num, total_cov):
     """One run_savage over the envelope and its JSON record."""
     import torch
 
-    from haploconduct_torch.ops import kernels
+    from haploconduct_torch.ops import device_cache, kernels
     from haploconduct_torch.ops.verify import BACKEND_COUNTS
     from haploconduct_torch.parallel import distributed
     from haploconduct_torch.parallel.devices import on_card as torch_on_card
@@ -218,6 +217,7 @@ def run_envelope(store, haps, backend, split_num, total_cov):
     for key in BACKEND_COUNTS:
         BACKEND_COUNTS[key] = 0
     kernels.score_tasks_cuda.launches = 0
+    device_cache.reset_stats()
 
     t0 = time.time()
     res = run_savage(store, SavageConfig(split_num=split_num, backend=backend,
@@ -235,6 +235,7 @@ def run_envelope(store, haps, backend, split_num, total_cov):
         out["torch"] = {
             "score_tasks_launches": kernels.score_tasks_cuda.launches,
             "backend_counts": dict(BACKEND_COUNTS),
+            "transfers": dict(device_cache.TRANSFER_STATS),
             "peak_cuda_mib": (torch.cuda.max_memory_allocated() / 2**20
                               if on_card else None)}
     contigs = {}
@@ -576,30 +577,33 @@ class Breakdown:
 
 
 def _reset_counts():
-    from haploconduct_torch.ops import kernels
+    from haploconduct_torch.ops import device_cache, kernels
     from haploconduct_torch.ops.kmer_device import JOIN_CALLS, JOIN_SECONDS
     from haploconduct_torch.ops.verify import BACKEND_COUNTS
 
     for key in BACKEND_COUNTS:
         BACKEND_COUNTS[key] = 0
     kernels.score_tasks_cuda.launches = 0
+    device_cache.reset_stats()
     JOIN_CALLS.clear()
     JOIN_SECONDS.clear()
 
 
-def _device_record(on_card, pool_size=1):
-    """The scoring kernel's launches, the tasks per backend, the join's
-    calls and seconds, the peak CUDA memory."""
+def _device_record(on_card):
+    """The scoring kernel's launches, the tasks per backend, the packed
+    matrix's transfers, the join's calls and seconds, the peak CUDA
+    memory."""
     import torch
 
     from haploconduct_torch.ops import kernels
+    from haploconduct_torch.ops.device_cache import TRANSFER_STATS
     from haploconduct_torch.ops.kmer_device import JOIN_CALLS, JOIN_SECONDS
     from haploconduct_torch.ops.verify import BACKEND_COUNTS
 
     return {
         "score_tasks_launches": kernels.score_tasks_cuda.launches,
         "backend_counts": dict(BACKEND_COUNTS),
-        "approximate_counts": ["recheck"] if pool_size > 1 else [],
+        "transfers": dict(TRANSFER_STATS),
         "join_calls": dict(JOIN_CALLS),
         "join_seconds": dict(JOIN_SECONDS),
         "peak_cuda_mib": (torch.cuda.max_memory_allocated() / 2**20
@@ -664,7 +668,7 @@ def run_polyte_workflow(workflow, store, haps, backend, candidates, reference=No
                 prof.disable()
         out["wall_s"] = time.time() - t0
     out["breakdown"] = pieces.record(out["wall_s"])
-    out["device"] = _device_record(on_card, pool_size)
+    out["device"] = _device_record(on_card)
     if workflow == "polyte-split":
         final = _contig_strings(res.final.store if res.final else None)
         out.update({
