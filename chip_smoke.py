@@ -11,7 +11,8 @@ Phases (each prints a line; any failure exits non-zero):
      kb-wide contigs, more than 2^16 rows, a 9 kb wide matrix, an EC
      iteration of a polyte-split region, POLYTE diploid's first and a
      late iteration, a 500 kb polyte-split region's first iteration and
-     its final pass) and thresholds 0 and far_threshold(): integer
+     its final pass, and torch_bench.py's example shape, which phase 13
+     loops over) and thresholds 0 and far_threshold(): integer
      columns equal, sum_log within rtol 1e-4 / atol 1e-3; each shape's
      kernel, plain and bound times;
   3. stage a on a 160-read store (150 bp reads of a 2 kb genome, k=16
@@ -93,10 +94,21 @@ Phases (each prints a line; any failure exits non-zero):
      against the native engine, both with the host candidate engine:
      contigs, diploid contigs and iterations byte-identical, and the
      record's 570 contigs in 37 iterations.
+ 13. torch_bench.py, the twin of bench.py, with few repeats, on card 0:
+     its default mode at the example shape and at the iteration-1 stream
+     of phase 2, both held to the plain version there (the kernel's
+     repeat loop through ops/kernels.py:launch_score_tasks, the scoring
+     call's rate and the live OpenMP baseline), then its --mesh mode over
+     every card count the host has at both shapes. Every launch of the
+     loop counted in score_tasks_cuda.launches, the loop's f64 checksum
+     within 1e-9 relative of repeats x one call's sum and its integer
+     totals exact, every sharding bit-equal to one call, every rate
+     positive and finite.
 
-Phases 4, 8, 11 and 12 score on card 0 alone whatever the number of
-visible cards (pinned_mesh), so their counts hold on a host with several;
-phases 9 and 10 cover several devices on purpose.
+Phases 4, 8, 11 and 12, and phase 13's default mode, score on card 0
+alone whatever the number of visible cards (pinned_mesh, or card 0 named),
+so their counts hold on a host with several; phases 9, 10 and 13's --mesh
+cover several devices on purpose.
 
 Phase 4 also prints the stage c contigs' genome fraction and mismatch rate
 against the four strains (workflows/evaluate.py); no check reads them. The
@@ -111,6 +123,7 @@ on the card: it sets HC_TORCH_DEVICE=cuda for its own process.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import statistics
@@ -148,26 +161,6 @@ def cuda_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-def random_matrix(rng, R, W, lmin, lmax=None):
-    """(R, W) codes/quals with random bases and phreds 2-40 over each
-    row's random length, pad beyond it."""
-    lens = rng.integers(lmin, (lmax or W) + 1, R).astype(np.int64)
-    codes = rng.integers(0, 4, (R, W)).astype(np.int8)
-    quals = rng.integers(2, 41, (R, W)).astype(np.uint8)
-    pad = np.arange(W)[None, :] >= lens[:, None]
-    codes[pad] = 5
-    quals[pad] = 0
-    return codes, quals, lens
-
-
-def kernel_case(name, rng, R, W, lmin, B, pos_slack, row_a_lo=0, lmax=None):
-    codes, quals, lens = random_matrix(rng, R, W, lmin, lmax)
-    row_a = rng.integers(row_a_lo, R, B).astype(np.int64)
-    row_b = rng.integers(0, R, B).astype(np.int64)
-    pos = (rng.random(B) * np.maximum(1, lens[row_a] - pos_slack)).astype(np.int64)
-    return name, codes, quals, lens, row_a, row_b, pos
 
 
 def far_threshold() -> float:
@@ -214,30 +207,34 @@ def score_bound(lens, row_a, row_b, pos, L):
 
 def phase_kernel(torch, rng):
     """Phase 2: kernel vs plain version on the card."""
+    import torch_bench
     from haploconduct_torch.ops.kernels import score_tasks_cuda
     from haploconduct_torch.ops.score import pack_for_device, score_tasks_plain
 
     cases = [
         # iteration 1 of an envelope patch: 2 x 44k oriented reads of
         # 150 bp, overlaps of at least 90 bp
-        kernel_case("envelope_it1", rng, 88_932, 150, 150, 10_500_000, 90),
-        kernel_case("kb_contigs", rng, 64, 6200, 4000, 4096, 2000),
-        kernel_case("rows_over_2^16", rng, (1 << 16) + 512, 64, 40, 4096, 34,
+        torch_bench.kernel_case("envelope_it1", rng, 88_932, 150, 150, 10_500_000, 90),
+        torch_bench.kernel_case("kb_contigs", rng, 64, 6200, 4000, 4096, 2000),
+        torch_bench.kernel_case("rows_over_2^16", rng, (1 << 16) + 512, 64, 40, 4096, 34,
                     row_a_lo=(1 << 16) + 512 - 4096),
-        kernel_case("wide_9kb", rng, 1600, 9000, 800, 1024, 100),
+        torch_bench.kernel_case("wide_9kb", rng, 1600, 9000, 800, 1024, 100),
         # an EC iteration of a polyte-split envelope region: 2 x 1,320
         # oriented reads of 250 bp, overlaps of at least 127 bp
-        kernel_case("polyte_region", rng, 2640, 250, 250, 120_000, 127),
+        torch_bench.kernel_case("polyte_region", rng, 2640, 250, 250, 120_000, 127),
         # POLYTE diploid at 50 kb (torch_envelope.py --workflow polyte):
         # its first (EC) iteration, 2 x 13,332 reads of 150 bp, overlaps of
         # at least 77 bp, and a late diploid iteration over contigs
-        kernel_case("polyte_diploid_it1", rng, 26_664, 150, 150, 248_268, 77),
-        kernel_case("polyte_diploid_late", rng, 1042, 1347, 150, 1177, 60),
+        torch_bench.kernel_case("polyte_diploid_it1", rng, 26_664, 150, 150, 248_268, 77),
+        torch_bench.kernel_case("polyte_diploid_late", rng, 1042, 1347, 150, 1177, 60),
         # polyte-split at 500 kb: the largest region's first iteration, and
         # the final pass's first, over every region's contigs (the one step
         # whose size grows with the genome)
-        kernel_case("split500_region_it1", rng, 2826, 250, 250, 22_022, 127),
-        kernel_case("split500_final", rng, 4890, 2928, 250, 5973, 127),
+        torch_bench.kernel_case("split500_region_it1", rng, 2826, 250, 250, 22_022, 127),
+        torch_bench.kernel_case("split500_final", rng, 4890, 2928, 250, 5973, 127),
+        # torch_bench.py's example shape (phase 13's loop): 65,536 tasks of
+        # 100-400 bp overlaps over the synthetic example reads at width 512
+        torch_bench.build_workload(65_536, SEED),
     ]
     thresh = far_threshold()
     report = []
@@ -886,12 +883,13 @@ def phase_mesh_stream(torch, reps=3):
     """Phase 9 (a): the iteration-1 stream scored by sharded_score_tasks
     (parallel/mesh.py) over two shards on card 0, and over every visible
     card when there are several, against one score_tasks_torch call."""
+    import torch_bench
     from haploconduct_torch.ops.score import score_tasks_torch
     from haploconduct_torch.parallel import mesh
 
     card0 = torch.device("cuda", 0)
-    _, *args = kernel_case("envelope_it1", np.random.default_rng(SEED),
-                           88_932, 150, 150, 10_500_000, 90)
+    # phase 2's first draw
+    _, *args = torch_bench.envelope_workload(seed=SEED)
     calls = {"one call": lambda th: score_tasks_torch(*args, mismatch_thresh=th,
                                                       device=card0),
              "2 shards on card 0": lambda th: mesh.sharded_score_tasks(
@@ -953,6 +951,68 @@ def phase_mesh_savage(torch, patch, want, tasks, launches):
     log("[mesh] contigs byte-identical to phase 4 (cache on) with the cache off, "
         "every task through the mesh")
     return mesh_launches
+
+
+# phase 13's repeats of the kernel loop and of each mesh size
+PHASE13_REPEATS, PHASE13_MESH_REPEATS = 5, 2
+
+
+def phase_bench(torch):
+    """Phase 13: torch_bench.py's default mode and --mesh at the example
+    shape and the iteration-1 stream, with few repeats. Returns the
+    scoring kernel's launches."""
+    import math
+
+    import torch_bench
+    from haploconduct_torch.ops import kernels
+
+    card0 = torch.device("cuda", 0)
+    r = PHASE13_REPEATS
+    store = torch_bench.example_store(SEED)
+    example = torch_bench.build_workload(65_536, SEED, store)
+    envelope = torch_bench.envelope_workload(seed=SEED)
+    baseline = torch_bench.build_workload(torch_bench.BASELINE_TASKS, SEED, store)
+    printed = io.StringIO()  # the twin's JSON lines, logged below
+    kernels.score_tasks_cuda.launches = 0
+    with contextlib.redirect_stdout(printed):
+        lines = [torch_bench.bench_rates(example, card0, r, baseline_workload=baseline),
+                 torch_bench.bench_rates(envelope, card0, r)]
+    loop_launches = kernels.score_tasks_cuda.launches
+    # a line: the loop's warm-up, one wrapper call, a warm-up replay and
+    # three timed loops, then four scoring calls
+    if loop_launches != len(lines) * (5 * r + 1 + 4):
+        raise AssertionError(f"the repeat loops counted {loop_launches} launches, "
+                             f"not {len(lines) * (5 * r + 5)}")
+    with contextlib.redirect_stdout(printed):
+        lines += [torch_bench.bench_mesh(card0, w, [1, 2, 4, 8], PHASE13_MESH_REPEATS)
+                  for w in (example, envelope)]
+    launches = kernels.score_tasks_cuda.launches
+    for text in printed.getvalue().splitlines():
+        log(f"[bench] line {text}")
+    for line in lines[:2]:
+        want_f, got_f = line["checksum_expected"], line["checksum"]
+        if abs(got_f - want_f) > 1e-9 * abs(want_f) or \
+                line["checksum_ints"] != line["checksum_ints_expected"]:
+            raise AssertionError(f"{line['shape']}: the loop's checksum {got_f} "
+                                 f"{line['checksum_ints']} against {want_f} "
+                                 f"{line['checksum_ints_expected']}")
+        rates = [line["value"], line["median"], *line["samples"], line["call_rate"],
+                 line["baseline_live"], line["vs_baseline"], line["host_launches_per_s"]]
+        if not all(math.isfinite(v) and v > 0 for v in rates):
+            raise AssertionError(f"{line['shape']}: a rate is not positive: {rates}")
+        log(f"[bench] {line['shape']}: {line['n_tasks']} tasks ({line['n_sub']} "
+            f"subtasks), kernel {line['value']:.4g} tasks/s (median "
+            f"{line['median']:.4g}, {line['launch_path']}, host enqueues "
+            f"{line['host_launches_per_s']:.4g} launches/s), call "
+            f"{line['call_rate']:.4g}/s, live baseline {line['baseline_live']:.4g}/s "
+            f"on {line['host_cores']} cores, checksum {line['checksum']:.17g}")
+    for line in lines[2:]:
+        if not all(math.isfinite(v) and v > 0 for v in line["per_device_count"].values()):
+            raise AssertionError(f"{line['shape']}: a mesh rate is not positive")
+        log(f"[bench] mesh {line['shape']}: per device count "
+            f"{ {k: round(v) for k, v in line['per_device_count'].items()} }, "
+            "every sharding bit-equal to one call")
+    return launches
 
 
 PHASE11_ENVELOPE = dict(total_cov=1334, split_num=2)
@@ -1301,6 +1361,12 @@ def main() -> int:
     log(f"[phase 10] {time.perf_counter() - t0:.1f}s; launches score_tasks "
         f"{dryrun_launches}, join_verify {join_launches}")
 
+    # phase 13: torch_bench.py's default mode and --mesh
+    t0 = time.perf_counter()
+    bench_launches = phase_bench(torch)
+    log(f"[phase 13] {time.perf_counter() - t0:.1f}s; launches score_tasks "
+        f"{bench_launches}")
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("haploconduct_tpu", "jax", "jaxlib"))
     if loaded:
@@ -1315,11 +1381,12 @@ def main() -> int:
         "source": "haploconduct_torch/csrc/score_tasks.cu",
         "replaces": "haploconduct_tpu/ops/pallas_score.py:75",
         "launches": (launches + split["launches"] + mesh_launches + dryrun_launches
-                     + envelope_launches + diploid_launches),
+                     + envelope_launches + diploid_launches + bench_launches),
         "launches_by_path": {"savage": launches, "polyte_split": split["launches"],
                              "mesh": mesh_launches, "mesh_dryrun": dryrun_launches,
                              "savage_envelope": envelope_launches,
-                             "polyte_diploid": diploid_launches},
+                             "polyte_diploid": diploid_launches,
+                             "bench": bench_launches},
         "max_abs_err": max(r["max_abs_err"] for r in report),
         "ms": env["ms"],
         "plain_ms": env["plain_ms"],

@@ -10,10 +10,11 @@ valid when d < the k-mer's count, the entry's row rb differs from r and
 shift = p - (the entry's position) >= 0; it scores the diagonal
 comb[r, shift + j] against comb[rb, j], j < min(len[r] - shift, len[rb]),
 over the lanes where neither code is N or pad, with the reference's
-per-lane probability summed as log p in f32 (ops/score.py:lane_p). score =
-exp(sum log p / counted) when valid and counted >= min_overlap_len, else
-0; the slots scoring above edge_threshold are counted. No mismatch
-rejection and no minimum read length, as in the reference's step.
+per-lane probability summed as log p in f32 (ops/score.py:lane_p, its
+values taken from lane_tables). score = exp(sum log p / counted) when
+valid and counted >= min_overlap_len, else 0; the slots scoring above
+edge_threshold are counted. No mismatch rejection and no minimum read
+length, as in the reference's step.
 
 `join_verify` launches the CUDA kernel (csrc/join_verify.cu through
 ops/kernels.py:join_verify_cuda) on a CUDA tensor and runs the plain
@@ -22,7 +23,9 @@ two sum log p in other orders: scores agree within 1e-5, the zero pattern
 (decided by exact integers) exactly. A slot's score depends on its
 diagonal (r, rb, shift) alone (`slot_diagonals`), so the kernel scores
 each distinct diagonal among a tile of TILE_SLOTS slots of a row once and
-hands its score to every slot on it; the plain version scores every slot.
+hands its score to every slot on it; the plain version scores every slot,
+sums its lanes with ops/score.py:lane_sum and takes exp with fixed_exp,
+so its bits do not depend on the thread count or the batch.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 
 from .kernels import join_verify_cuda
 from .kmer_device import kmer_hashes
-from .score import lane_p
+from .score import fixed_exp, lane_index, lane_sum, lane_tables
 
 # slots of one query row the kernel deduplicates together
 # (csrc/join_verify.cu:kTileSlots)
@@ -107,6 +110,7 @@ def join_verify_plain(comb: torch.Tensor, lens: torch.Tensor, t_rid: torch.Tenso
     lens64 = lens.to(torch.int64)
     col = torch.arange(rw, device=dev)
     per = max(1, PLAIN_LANES // (expand * rw))
+    log_tab = lane_tables(dev)[1]
     scores = []
     n_edges = torch.zeros((), dtype=torch.int64, device=dev)
     for s in range(0, n, per):
@@ -117,12 +121,12 @@ def join_verify_plain(comb: torch.Tensor, lens: torch.Tensor, t_rid: torch.Tenso
         a_idx = torch.clamp(shift[..., None] + col, 0, rw - 1)
         a_w = flat[r[:, None, None] * rw + a_idx].to(torch.int32)
         b_w = flat[rb[..., None] * rw + col].to(torch.int32)
-        p, _, called = lane_p(a_w, b_w)
+        idx, _, called = lane_index(a_w, b_w)
         cm = (col < L[..., None]) & called
-        sum_log = torch.where(cm, torch.log(p), 0.0).sum(dim=-1)
+        sum_log = lane_sum(torch.where(cm, log_tab[idx], 0.0))
         counted = cm.sum(dim=-1)
         ok = valid & (counted >= min_overlap_len)
-        sc = torch.where(ok, torch.exp(sum_log / torch.clamp(counted, min=1)), 0.0)
+        sc = torch.where(ok, fixed_exp(sum_log / torch.clamp(counted, min=1)), 0.0)
         n_edges += (sc > edge_threshold).sum()
         scores.append(sc.reshape(-1))
     if not scores:

@@ -155,28 +155,54 @@ def score_tasks_cuda(comb: torch.Tensor, lens: torch.Tensor, row_a: torch.Tensor
     lens = lens.contiguous()
     cols = tuple(c.contiguous() for c in cols)
     dev = comb.device
-    sum_log = torch.empty(n, dtype=torch.float64, device=dev)
-    # counted, mismatches, rejected and the kernel's tile counter in one block
-    ints = torch.empty(3 * n + 1, dtype=torch.int32, device=dev)
-    counted, mism, rej, tiles = ints[:n], ints[n:2 * n], ints[2 * n:3 * n], ints[3 * n:]
-    if n == 0:
-        return sum_log, counted, mism, rej
-    # the table covers phreds up to this one; a lower value would let
-    # lanes index past it
-    max_qual = int(comb.max()) >> 3
-    args = (comb.data_ptr(), comb.shape[1], lens.data_ptr(),
-            *(c.data_ptr() for c in cols), n, float(mismatch_thresh), int(max_qual),
-            group, tiles.data_ptr(), sum_log.data_ptr(), counted.data_ptr(),
-            mism.data_ptr(), rej.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    err = _launch(load(SCORE_SRC), dev, args)
-    if err != 0:
-        raise RuntimeError(f"score_tasks kernel launch failed: CUDA error {err}")
-    with _lock:
-        score_tasks_cuda.launches += 1
-    return sum_log, counted, mism, rej
+    sum_log, ints = score_tasks_outputs(n, dev)
+    if n:
+        # the table covers phreds up to this one; a lower value would let
+        # lanes index past it
+        max_qual = int(comb.max()) >> 3
+        launch_score_tasks(comb, lens, *cols, mismatch_thresh, max_qual, group,
+                           sum_log, ints)
+    return sum_log, ints[:n], ints[n:2 * n], ints[2 * n:3 * n]
 
 
 score_tasks_cuda.launches = 0
+
+
+def score_tasks_outputs(n: int, dev):
+    """The scoring kernel's outputs for n tasks: sum_log (n,) f64 and one
+    (3n + 1,) int32 block of counted, mismatches, rejected and the
+    kernel's tile counter."""
+    return (torch.empty(n, dtype=torch.float64, device=dev),
+            torch.empty(3 * n + 1, dtype=torch.int32, device=dev))
+
+
+def launch_score_tasks(comb, lens, row_a, row_b, pos, mismatch_thresh: float,
+                       max_qual: int, group: int, sum_log, ints, fn=None) -> None:
+    """Enqueue one launch of the scoring kernel on the current stream of
+    comb's device, into score_tasks_outputs' tensors, and count it in
+    score_tasks_cuda.launches. No check and no host wait: the caller gives
+    contiguous int32 columns on comb's device and max_qual >= the largest
+    phred in comb. `fn` is a C entry point of the same interface (default:
+    the built csrc/score_tasks.cu). A launch recorded into a CUDA graph is
+    not counted here: it runs, and is counted, where the graph is replayed
+    (count_score_tasks_launches)."""
+    n = row_a.shape[0]
+    dev = comb.device
+    args = (comb.data_ptr(), comb.shape[1], lens.data_ptr(), row_a.data_ptr(),
+            row_b.data_ptr(), pos.data_ptr(), n, float(mismatch_thresh), int(max_qual),
+            int(group), ints[3 * n:].data_ptr(), sum_log.data_ptr(),
+            ints[:n].data_ptr(), ints[n:2 * n].data_ptr(), ints[2 * n:3 * n].data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    err = _launch(fn or load(SCORE_SRC), dev, args)
+    if err != 0:
+        raise RuntimeError(f"score_tasks kernel launch failed: CUDA error {err}")
+    if not torch.cuda.is_current_stream_capturing():
+        count_score_tasks_launches(1)
+
+
+def count_score_tasks_launches(k: int) -> None:
+    with _lock:
+        score_tasks_cuda.launches += k
 
 
 def join_verify_cuda(comb: torch.Tensor, lens: torch.Tensor, t_rid: torch.Tensor,

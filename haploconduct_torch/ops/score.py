@@ -245,20 +245,81 @@ def segment_tasks(row_a, row_b, pos, L):
     return s_rowa, s_rowb, s_posa, s_bolen, bounds
 
 
-def lane_p(a_w: torch.Tensor, b_w: torch.Tensor):
-    """Per lane of int32 words code | qual << 3: (p, match, called). p is
-    the reference's f32 probability that both bases were read from one
-    haplotype, in the operation order the kernels' lane_p (csrc/
-    lane_p.cuh) pins; match, whether the codes agree; called, whether
-    neither code is N or pad."""
+def lane_p(qa: np.ndarray, qb: np.ndarray, match: np.ndarray) -> np.ndarray:
+    """The reference's f32 probability that both bases were read from one
+    haplotype, for phred arrays qa, qb and match flags, in the operation
+    order the kernels' lane_p (csrc/lane_p.cuh) pins. Each exp is taken in
+    f64 and rounded to f32, so no vector math library decides a bit."""
+    c = np.float32(-LOG10_OVER_10)
+    one, third, two_ninths = np.float32(1.0), np.float32(1.0 / 3.0), np.float32(2.0 / 9.0)
+
+    def err(q):
+        return np.exp((np.asarray(q).astype(np.float32) * c).astype(np.float64)
+                      ).astype(np.float32)
+
+    p1, p2 = err(qa), err(qb)
+    p_match = (one - p1) * (one - p2) + (p1 * p2) * third
+    p_mis = (p1 * (one - p2) + p2 * (one - p1)) * third + two_ninths * (p1 * p2)
+    return np.where(match, p_match, p_mis)
+
+
+@functools.lru_cache(maxsize=None)
+def lane_tables(device: torch.device):
+    """(p, log p), f32 tensors on `device` with one entry per (qa, qb,
+    match) of phreds below 256, at lane_index's index: lane_p's values,
+    and their logs taken in f64 and rounded to f32. The plain versions
+    gather every lane from these tables rather than take torch's exp and
+    log per call: on the CPU those gave one intra-op thread's share of a
+    process's first call values up to 5e-6 away from later calls'."""
+    q = np.arange(256)
+    qa, qb, m = np.meshgrid(q, q, np.array([False, True]), indexing="ij")
+    p = lane_p(qa, qb, m).ravel()
+    log_p = np.log(p.astype(np.float64)).astype(np.float32)
+    return torch.from_numpy(p).to(device), torch.from_numpy(log_p).to(device)
+
+
+def lane_index(a_w: torch.Tensor, b_w: torch.Tensor):
+    """Per lane of int32 words code | qual << 3: (the lane's entry of
+    lane_tables, (qa << 9) | (qb << 1) | match; match, whether the codes
+    agree; called, whether neither code is N or pad)."""
     a, b = a_w & 7, b_w & 7
-    p1 = torch.exp((a_w >> 3).to(torch.float32) * (-LOG10_OVER_10))
-    p2 = torch.exp((b_w >> 3).to(torch.float32) * (-LOG10_OVER_10))
     match = a == b
-    p_match = (1.0 - p1) * (1.0 - p2) + (p1 * p2) * (1.0 / 3.0)
-    p_mis = ((p1 * (1.0 - p2) + p2 * (1.0 - p1)) * (1.0 / 3.0)
-             + (2.0 / 9.0) * (p1 * p2))
-    return torch.where(match, p_match, p_mis), match, (a < N_CODE) & (b < N_CODE)
+    idx = ((a_w >> 3) << 9) | ((b_w >> 3) << 1) | match.to(a_w.dtype)
+    return idx, match, (a < N_CODE) & (b < N_CODE)
+
+
+def lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dimension by pairwise halving, zeros padded up to
+    a power of two: an order of adds that no thread count or batch size
+    can change."""
+    w = 1 << max(x.shape[-1] - 1, 0).bit_length()
+    if w != x.shape[-1]:
+        x = torch.nn.functional.pad(x, (0, w - x.shape[-1]))
+    while w > 1:
+        w //= 2
+        x = x[..., :w] + x[..., w:]
+    return x[..., 0]
+
+
+_INV_LN2 = 1.4426950408889634
+# ln 2 in two parts: k * _LN2_HI is exact for |k| < 2^11
+_LN2_HI, _LN2_LO = 6.93147180369123816490e-01, 1.90821492927058770002e-10
+
+
+def fixed_exp(x: torch.Tensor) -> torch.Tensor:
+    """exp of x, rounded to f32, for x <= 0 (clamped below at -700, where
+    f32 holds 0). Evaluated in f64 as 2^k * exp(r), x = k ln 2 + r with
+    |r| <= ln 2 / 2, exp(r) by a degree-13 Taylor polynomial: only
+    multiplies, adds and divides, each rounded once by IEEE rules, so no
+    thread split or vector path of torch's exp can move a bit."""
+    x = x.to(torch.float64).clamp(-700.0, 0.0)
+    k = torch.round(x * _INV_LN2)
+    r = (x - k * _LN2_HI) - k * _LN2_LO
+    y = torch.ones_like(r)
+    for n in range(13, 0, -1):
+        y = 1.0 + (r / n) * y
+    scale = ((k.to(torch.int64) + 1023) << 52).view(torch.float64)
+    return (y * scale).to(torch.float32)
 
 
 def segment_scores_torch(comb: torch.Tensor, rowa: torch.Tensor,
@@ -266,7 +327,9 @@ def segment_scores_torch(comb: torch.Tensor, rowa: torch.Tensor,
                          bolen: torch.Tensor, mismatch_thresh: float):
     """Per SEG-lane subtask (the reference's xla_segment_body): sum_log
     f32, counted, mismatches and rejected int32. Lanes past seg_len are
-    masked; their clamped gathers stay inside the row."""
+    masked; their clamped gathers stay inside the row. Each lane's p and
+    log p come from lane_tables, and the lanes are summed by lane_sum, so
+    the bits do not depend on the thread count or the batch."""
     n = rowa.shape[0]
     if n == 0:
         return (torch.zeros(0, dtype=torch.float32, device=comb.device),
@@ -274,6 +337,7 @@ def segment_scores_torch(comb: torch.Tensor, rowa: torch.Tensor,
                   for _ in range(3)))
     rw = comb.shape[1]
     flat = comb.reshape(-1)
+    p_tab, log_tab = lane_tables(comb.device)
     col = torch.arange(SEG, device=comb.device, dtype=torch.int64)[None, :]
     outs = ([], [], [], [])
     for s in range(0, n, PLAIN_CHUNK):
@@ -284,12 +348,12 @@ def segment_scores_torch(comb: torch.Tensor, rowa: torch.Tensor,
         b_idx = torch.clamp((k * SEG)[:, None] + col, max=rw - 1)
         a_w = flat[rowa[s:e].to(torch.int64)[:, None] * rw + a_idx].to(torch.int32)
         b_w = flat[rowb[s:e].to(torch.int64)[:, None] * rw + b_idx].to(torch.int32)
-        p, match, called = lane_p(a_w, b_w)
+        idx, match, called = lane_index(a_w, b_w)
         cm = (col < lt[:, None]) & called
-        outs[0].append(torch.where(cm, torch.log(p), 0.0).sum(dim=1))
+        outs[0].append(lane_sum(torch.where(cm, log_tab[idx], 0.0)))
         outs[1].append(cm.sum(dim=1, dtype=torch.int32))
         outs[2].append((cm & ~match).sum(dim=1, dtype=torch.int32))
-        outs[3].append((cm & (p < mismatch_thresh)).sum(dim=1, dtype=torch.int32))
+        outs[3].append((cm & (p_tab[idx] < mismatch_thresh)).sum(dim=1, dtype=torch.int32))
     return tuple(torch.cat(o) for o in outs)
 
 
@@ -299,10 +363,14 @@ def score_tasks_plain(comb: torch.Tensor, lens: torch.Tensor,
     """Plain PyTorch version of the scoring kernel, on comb's device: per
     task (sum_log f64, counted, mismatches, rejected int32). Each task is
     cut into SEG-lane subtasks (segment_tasks), each subtask summed in f32
-    (segment_scores_torch), and the subtask sums added per task in f64,
-    in segment order on the CPU."""
+    (segment_scores_torch), and the subtask sums added per task in f64 in
+    segment order: the first segments, then each task's k-th segment for
+    k = 1, 2, ..., so the order is fixed on any device."""
     dev = comb.device
     n = row_a.shape[0]
+    if n == 0:
+        return (torch.zeros(0, dtype=torch.float64, device=dev),
+                *(torch.zeros(0, dtype=torch.int32, device=dev) for _ in range(3)))
     lens64 = lens.to(torch.int64)
     ra, rb, p = (c.to(torch.int64) for c in (row_a, row_b, pos))
     len_a, len_b = lens64[ra], lens64[rb]
@@ -311,13 +379,15 @@ def score_tasks_plain(comb: torch.Tensor, lens: torch.Tensor,
                                   p.cpu().numpy(), L.cpu().numpy())
     sub = segment_scores_torch(comb, *(torch.from_numpy(c).to(dev) for c in cols),
                                mismatch_thresh)
+    sub = (sub[0].to(torch.float64), *sub[1:])
     nseg = np.diff(np.append(bounds, len(cols[0])))
-    task_of = torch.from_numpy(np.repeat(np.arange(n), nseg)).to(dev)
-    sum_log = torch.zeros(n, dtype=torch.float64, device=dev).index_add_(
-        0, task_of, sub[0].to(torch.float64))
-    ints = tuple(torch.zeros(n, dtype=torch.int32, device=dev).index_add_(0, task_of, s)
-                 for s in sub[1:])
-    return (sum_log, *ints)
+    sums = [s[torch.from_numpy(bounds).to(dev)] for s in sub]
+    for k in range(1, int(nseg.max(initial=1))):
+        tasks = np.flatnonzero(nseg > k)
+        at, seg = (torch.from_numpy(c).to(dev) for c in (tasks, bounds[tasks] + k))
+        for whole, part in zip(sums, sub):
+            whole[at] += part[seg]
+    return tuple(sums)
 
 
 def score_tasks(comb: torch.Tensor, lens, row_a, row_b, pos,

@@ -308,3 +308,36 @@ def test_cached_matrices_of_two_threads_on_card(cuda_device):
     for th in threads:
         th.join()
     assert errors == []
+
+
+@pytest.mark.cuda
+def test_launch_helper_counts_each_launch_and_no_captured_one(cuda_device):
+    """kernels.launch_score_tasks, which the wrapper, torch_bench.py's
+    repeat loop and torch_ab.py launch through, gives the wrapper's
+    columns and counts each launch it enqueues; a launch recorded into a
+    CUDA graph is counted by whoever replays the graph, not here."""
+    *_, comb, cols = card_case("envelope_reads", cuda_device)
+    want = kernels.score_tasks_cuda(comb, *cols, 0.0)
+    n = cols[1].shape[0]
+    sum_log, ints = kernels.score_tasks_outputs(n, cuda_device)
+    args = (comb, *cols, 0.0, int(comb.max()) >> 3, kernels.default_group(comb.shape[1]),
+            sum_log, ints)
+
+    def check():
+        torch.cuda.synchronize()
+        assert torch.equal(sum_log, want[0])
+        for j, got in enumerate((ints[:n], ints[n:2 * n], ints[2 * n:3 * n]), 1):
+            assert torch.equal(got, want[j])
+
+    before = kernels.score_tasks_cuda.launches
+    kernels.launch_score_tasks(*args)
+    assert kernels.score_tasks_cuda.launches == before + 1
+    check()
+    sum_log.zero_()
+    ints.zero_()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kernels.launch_score_tasks(*args)
+    assert kernels.score_tasks_cuda.launches == before + 1
+    graph.replay()
+    check()

@@ -1,6 +1,6 @@
-"""haploconduct_torch stands alone: no module of it, and not chip_smoke.py
-or torch_envelope.py, imports the JAX package or jax; a process that refuses both imports every
-module of the port and runs it; importing it tunes the allocator; the host
+"""haploconduct_torch stands alone: no module of it, and not chip_smoke.py,
+torch_envelope.py or torch_bench.py, imports the JAX package or jax; a
+process that refuses both imports every module of the port and runs it; importing it tunes the allocator; the host
 modules it copied are the reference's, byte for byte; and state crosses
 from the reference's objects to the port's only as plain arrays."""
 
@@ -73,7 +73,8 @@ def _imports(path: Path):
 
 def test_no_module_imports_the_reference_or_jax():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                          REPO / "torch_envelope.py"]
+                                          REPO / "torch_envelope.py",
+                                          REPO / "torch_bench.py"]
     assert len(files) > 40
     bad = {str(f.relative_to(REPO)): sorted(set(_imports(f)) & set(REFUSED))
            for f in files}
@@ -132,19 +133,29 @@ DRIVE = """
         backend="torch", candidates="host", hap_cov=20, insert_size=150,
         stddev=15, min_overlap_len=60, min_overlap_len_EC=77))
     print("polyte", *[pol.store.seq_str(i) for i in range(len(pol.store))])
+    # torch_bench.py's --mesh mode, small, on the CPU
+    import contextlib, io, json
+    import torch_bench
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        torch_bench.main(["--mesh", "--device", "cpu", "--counts", "1,2", "--tasks",
+                          "500", "--envelope-tasks", "0", "--mesh-repeats", "1"])
+    print("bench", json.loads(buf.getvalue())["n_tasks"])
     print("modules", len(mods))
     assert not [m for m in sys.modules if m.split(".")[0] in %(refused)r]
 """
 
 
 def test_port_runs_with_the_reference_and_jax_refused():
-    """Every module imports, stage a runs on the dry-run store and POLYTE
-    on the 3 kb input, in a process that refuses jax and the JAX package;
-    both give the reference's contigs."""
+    """Every module imports, stage a runs on the dry-run store, POLYTE on
+    the 3 kb input and torch_bench.py's --mesh mode on a small workload,
+    in a process that refuses jax and the JAX package; stage a and POLYTE
+    give the reference's contigs."""
     proc = _run_refused(DRIVE % {"refused": REFUSED})
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = {line.split(" ")[0]: line.split(" ")[1:] for line in proc.stdout.splitlines()}
     assert int(out["modules"][0]) > 40
+    assert out["bench"] == ["500"]
 
     from haploconduct_tpu.assemble.stages import StageParams, run_stage
     from torch_helpers import dryrun_overlaps

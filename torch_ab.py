@@ -108,19 +108,14 @@ def load_lib(src: Path):
 
 
 def launch_tasks(fn, comb, cols, max_qual, group):
-    """One launch of a task kernel through its C interface, threshold 0."""
-    import torch
+    """One launch of a task kernel through its C interface, threshold 0
+    (ops/kernels.py:launch_score_tasks, which counts it)."""
+    from haploconduct_torch.ops import kernels
 
     n = cols[1].shape[0]
-    sum_log = torch.empty(n, dtype=torch.float64, device=comb.device)
-    ints = torch.empty(3 * n + 1, dtype=torch.int32, device=comb.device)
-    outs = (sum_log, ints[:n], ints[n:2 * n], ints[2 * n:3 * n])
-    err = fn(comb.data_ptr(), comb.shape[1], *(c.data_ptr() for c in cols), n,
-             0.0, max_qual, group, ints[3 * n:].data_ptr(),
-             *(o.data_ptr() for o in outs), torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"task kernel launch failed: CUDA error {err}")
-    return outs
+    sum_log, ints = kernels.score_tasks_outputs(n, comb.device)
+    kernels.launch_score_tasks(comb, *cols, 0.0, max_qual, group, sum_log, ints, fn=fn)
+    return sum_log, ints[:n], ints[n:2 * n], ints[2 * n:3 * n]
 
 
 def launch_segments(fn, comb, cols):
@@ -167,6 +162,7 @@ def kernel_ab(args) -> int:
     import torch
 
     import chip_smoke
+    import torch_bench
     from haploconduct_torch.ops import kernels
     from haploconduct_torch.ops.score import (pack_for_device, score_tasks_torch,
                                               segment_tasks)
@@ -181,7 +177,7 @@ def kernel_ab(args) -> int:
               ("wide_9kb", 1600, 9000, 800, 1024, 100, 0),
               ("polyte_region", 2640, 250, 250, 120_000, 127, 0)]
     for name, R, W, lmin, B, slack, lo in shapes:
-        _, codes, quals, lens, row_a, row_b, pos = chip_smoke.kernel_case(
+        _, codes, quals, lens, row_a, row_b, pos = torch_bench.kernel_case(
             name, rng, R, W, lmin, B, slack, row_a_lo=lo)
         L = np.where(pos >= lens[row_a], 0, np.minimum(lens[row_a] - pos, lens[row_b]))
         comb = pack_for_device(codes, quals, "cuda")
