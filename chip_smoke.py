@@ -1015,6 +1015,39 @@ def phase_bench(torch):
     return launches
 
 
+def phase_cands(torch):
+    """Phase 14: torch_cands.py's synthetic10x and polyte_reads_exact on
+    card 0, one timed run an engine."""
+    import torch_cands
+    from haploconduct_torch.ops.kmer_device import JOIN_CALLS
+
+    JOIN_CALLS.clear()
+    printed = io.StringIO()  # the twin's JSON lines, logged below
+    with contextlib.redirect_stdout(printed):
+        lines = torch_cands.run(["synthetic10x", "polyte_reads_exact"],
+                                torch.device("cuda", 0), runs=1)
+    for text in printed.getvalue().splitlines():
+        log(f"[cands] line {text}")
+    if not JOIN_CALLS.get("cuda"):
+        raise AssertionError(f"the join did not run on the card: {JOIN_CALLS}")
+    for line in lines:
+        recalls = [line[k] for k in ("device_recall_vs_host", "host_recall_vs_full",
+                                     "device_recall_vs_full")]
+        if not all(0.0 <= r <= 1.0 for r in recalls):
+            raise AssertionError(f"{line['workload']}: a recall outside [0, 1]: {recalls}")
+        if line["checks_failed"]:
+            raise AssertionError(f"{line['workload']}: {line['checks_failed']}")
+        log(f"[cands] {line['workload']}: {line['n_seqs']} seqs, host "
+            f"{line['host_candidates']} in {line['host_s']:.3f}s, join "
+            f"{line['device_candidates']} in {line['device_s']:.3f}s, complete "
+            f"{line['full_candidates']}; recall join/host {recalls[0]:.6f}, "
+            f"host/complete {recalls[1]:.6f}, join/complete {recalls[2]:.6f}; "
+            f"groups over expand {line['groups_over_expand']}, over max_group "
+            f"{line['groups_over_max_group']}")
+    log(f"[cands] join calls on the card {JOIN_CALLS['cuda']}; every set "
+        "deterministic, every recall in [0, 1]")
+
+
 PHASE11_ENVELOPE = dict(total_cov=1334, split_num=2)
 
 
@@ -1366,6 +1399,11 @@ def main() -> int:
     bench_launches = phase_bench(torch)
     log(f"[phase 13] {time.perf_counter() - t0:.1f}s; launches score_tasks "
         f"{bench_launches}")
+
+    # phase 14: torch_cands.py, the join on the card against the host engine
+    t0 = time.perf_counter()
+    phase_cands(torch)
+    log(f"[phase 14] {time.perf_counter() - t0:.1f}s")
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("haploconduct_tpu", "jax", "jaxlib"))

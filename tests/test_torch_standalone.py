@@ -1,5 +1,5 @@
 """haploconduct_torch stands alone: no module of it, and not chip_smoke.py,
-torch_envelope.py or torch_bench.py, imports the JAX package or jax; a
+torch_envelope.py, torch_bench.py or torch_cands.py, imports the JAX package or jax; a
 process that refuses both imports every module of the port and runs it; importing it tunes the allocator; the host
 modules it copied are the reference's, byte for byte; and state crosses
 from the reference's objects to the port's only as plain arrays."""
@@ -74,7 +74,8 @@ def _imports(path: Path):
 def test_no_module_imports_the_reference_or_jax():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                           REPO / "torch_envelope.py",
-                                          REPO / "torch_bench.py"]
+                                          REPO / "torch_bench.py",
+                                          REPO / "torch_cands.py"]
     assert len(files) > 40
     bad = {str(f.relative_to(REPO)): sorted(set(_imports(f)) & set(REFUSED))
            for f in files}
