@@ -104,11 +104,28 @@ Phases (each prints a line; any failure exits non-zero):
      within 1e-9 relative of repeats x one call's sum and its integer
      totals exact, every sharding bit-equal to one call, every rate
      positive and finite.
+ 14. torch_cands.py's synthetic10x and polyte_reads_exact, one timed run
+     an engine: the join must run on the card, every recall in [0, 1].
+ 15. two ranks over the mesh that spans them (parallel/mesh.py, the twin
+     of the JAX package's global mesh), each a process of its own that
+     starts its group itself: NCCL on cards 0 and 1 where there are two,
+     else two gloo ranks sharing card 0 (NCCL takes one rank a card).
+     (a) phase 2's iteration-1 stream through sharded_score_tasks on the
+     default mesh, every call's four columns on every rank bit-equal to
+     one score_tasks_torch call on card 0 (thresholds 0 and
+     far_threshold()) with one launch a rank a call, then phase 10 (b)'s
+     join + verify step, every rank's slot scores bit-equal to one
+     device's and the count summed over the ranks, one launch a rank;
+     (b) SAVAGE on phase 11's two patches as the two ranks: each rank's
+     stage a (its patch) inside mesh.rank_local with no collective and no
+     task under "mesh", stages b and c through the mesh, and every rank's
+     stage a/b/c contigs equal phase 11's one-process torch run. Each
+     rank's launches, counts and walls are printed.
 
 Phases 4, 8, 11 and 12, and phase 13's default mode, score on card 0
 alone whatever the number of visible cards (pinned_mesh, or card 0 named),
-so their counts hold on a host with several; phases 9, 10 and 13's --mesh
-cover several devices on purpose.
+so their counts hold on a host with several; phases 9, 10, 13's --mesh
+and 15 cover several devices (or ranks) on purpose.
 
 Phase 4 also prints the stage c contigs' genome fraction and mismatch rate
 against the four strains (workflows/evaluate.py); no check reads them. The
@@ -1141,7 +1158,7 @@ def two_rank_polyte_split(store, reference, workdir, device="cuda", timeout=900)
 def phase_savage_envelope(torch, workdir):
     """Phase 11: SAVAGE over 2 envelope patches, torch against native, and
     as two ranks of the CLI when there are two cards. Returns the torch
-    run's launches of the scoring kernel."""
+    run's launches of the scoring kernel and its contig_sets."""
     from haploconduct_torch.ops import kernels
     from haploconduct_torch.ops.verify import BACKEND_COUNTS
     from haploconduct_torch.workflows.savage import SavageConfig, run_savage
@@ -1183,7 +1200,7 @@ def phase_savage_envelope(torch, workdir):
     if torch.cuda.device_count() < 2:
         log("[savage_envelope] the two-rank CLI run needs two cards and this "
             "host has one: not run")
-        return launches
+        return launches, runs["torch"]
     ranks, wall = two_rank_cli(store, workdir, split)
     for rank, got in enumerate(ranks):
         if got != runs["torch"]:
@@ -1191,7 +1208,7 @@ def phase_savage_envelope(torch, workdir):
                                  "from the one-process torch run's")
     log(f"[savage_envelope] two ranks on two cards through the CLI: {wall:.2f}s, "
         "every rank's stage a/b/c contigs equal the one-process run's")
-    return launches
+    return launches, runs["torch"]
 
 
 # POLYTE diploid's genome in phase 12: the JAX record's 50 kb
@@ -1252,6 +1269,289 @@ def phase_polyte_diploid(torch):
         f"torch vs native; {got[0]} contigs in {got[1]} iterations as the JAX "
         "package's record")
     return launches
+
+
+# phase 15: two ranks over the mesh that spans them, each rank in a
+# process of its own, bounded by this timeout (and its collectives too)
+PHASE15_TIMEOUT = 600
+PHASE15_REPS = 3
+PHASE15_ENV = ("PHASE15_BACKEND", "PHASE15_DEVICE", "PHASE15_PORT", "PHASE15_OUT")
+
+
+def phase15_thresholds():
+    """The mismatch thresholds of phase 15 (a)'s calls: a checked call at 0
+    and at far_threshold(), then PHASE15_REPS timed calls at 0, each
+    checked too."""
+    return [0.0, far_threshold()] + [0.0] * PHASE15_REPS
+
+
+def count_collectives(dist):
+    """Wrap torch.distributed's collectives so that each call is recorded
+    by name in the returned list."""
+    called = []
+    for name in ("all_gather_object", "all_gather", "all_gather_into_tensor",
+                 "all_reduce", "broadcast", "broadcast_object_list", "barrier",
+                 "gather", "scatter", "reduce", "all_to_all", "send", "recv"):
+        def counted(*a, _fn=getattr(dist, name), _name=name, **k):
+            called.append(_name)
+            return _fn(*a, **k)
+        setattr(dist, name, counted)
+    return called
+
+
+def sha256_of(array) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(array).tobytes()).hexdigest()
+
+
+def column_digests(ts) -> dict:
+    return {col: sha256_of(getattr(ts, col))
+            for col in ("sum_log", "counted", "mismatches", "rejected")}
+
+
+def contig_digests(sets) -> dict:
+    """A sha256 of each stage's (ids, contigs) of contig_sets()."""
+    import hashlib
+
+    return {s: hashlib.sha256(json.dumps([list(ids), list(seqs)]).encode()).hexdigest()
+            for s, (ids, seqs) in sorted(sets.items())}
+
+
+def global_mesh_rank() -> None:
+    """One rank of phase 15, in a process of its own (run_two_ranks starts
+    two): RANK, PHASE15_BACKEND (nccl or gloo), PHASE15_DEVICE (its card,
+    or cpu), PHASE15_PORT and PHASE15_OUT in the environment. It joins the
+    group itself, then (a) scores the iteration-1 stream and runs the
+    join + verify step over the mesh that spans the ranks, and (b) runs
+    SAVAGE on phase 11's two patches, and writes its digests, counts and
+    walls as JSON to PHASE15_OUT."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    import torch_bench
+    from haploconduct_torch.ops import kernels
+    from haploconduct_torch.ops.verify import BACKEND_COUNTS
+    from haploconduct_torch.parallel import mesh
+    from haploconduct_torch.workflows import savage
+
+    rank = int(os.environ["RANK"])
+    backend, device, port, out_path = (os.environ[k] for k in PHASE15_ENV)
+    own = torch.device(device)
+    os.environ["HC_TORCH_DEVICE"] = own.type
+    if own.type == "cuda":
+        torch.cuda.set_device(own)
+        for src in (kernels.SCORE_SRC, kernels.JOIN_SRC):
+            kernels.load(src)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=PHASE15_TIMEOUT))
+    called = count_collectives(dist)
+    entries = [mesh.RankDevice(r, own if r == rank else torch.device(own.type))
+               for r in range(2)]
+    if mesh.default_mesh() != entries:
+        raise AssertionError(f"rank {rank}: default_mesh() {mesh.default_mesh()}")
+    out = {"rank": rank, "backend": backend, "device": str(own)}
+
+    # (a) the iteration-1 stream through the mesh, then the join step
+    _, *args = torch_bench.envelope_workload(seed=SEED)
+    stream = out["stream"] = {"tasks": len(args[3]), "digests": [], "launches": [],
+                              "seconds": []}
+    for th in phase15_thresholds():
+        kernels.score_tasks_cuda.launches = 0
+        t0 = time.perf_counter()
+        ts = mesh.sharded_score_tasks(*args, mismatch_thresh=th)
+        stream["seconds"].append(time.perf_counter() - t0)
+        stream["launches"].append(kernels.score_tasks_cuda.launches)
+        stream["digests"].append(column_digests(ts))
+    del ts, args
+    inputs = envelope_join_inputs(envelope_patch())
+    kernels.join_verify_cuda.launches = 0
+    before = len(called)
+    t0 = time.perf_counter()
+    scores, n_edges = mesh.sharded_assembly_step(None, *inputs, **JOIN_KW)
+    out["join"] = {"seconds": time.perf_counter() - t0, "digest": sha256_of(scores),
+                   "n_edges": n_edges, "launches": kernels.join_verify_cuda.launches,
+                   "collectives": called[before:]}
+    del scores, inputs
+
+    # (b) SAVAGE on phase 11's two patches, a patch a rank in stage a
+    store, _ = phase11_store()
+    for key in BACKEND_COUNTS:
+        BACKEND_COUNTS[key] = 0
+    kernels.score_tasks_cuda.launches = 0
+    stages = []
+    run_stage = savage.run_stage
+
+    def recorded(params, *a, **k):
+        c0, l0 = len(called), kernels.score_tasks_cuda.launches
+        m0, t0 = BACKEND_COUNTS["mesh"], BACKEND_COUNTS["torch"]
+        res = run_stage(params, *a, **k)
+        stages.append([params.stage, len(called) - c0,
+                       BACKEND_COUNTS["mesh"] - m0, BACKEND_COUNTS["torch"] - t0,
+                       kernels.score_tasks_cuda.launches - l0])
+        return res
+
+    savage.run_stage = recorded
+    t0 = time.perf_counter()
+    res = savage.run_savage(store, savage.SavageConfig(
+        split_num=PHASE11_ENVELOPE["split_num"], backend="torch", min_clique_size=4))
+    sets = contig_sets(res)
+    out["savage"] = {"seconds": time.perf_counter() - t0, "timings": res.timings,
+                     "digests": contig_digests(sets),
+                     "contigs": {s: len(c[0]) for s, c in sets.items()},
+                     "launches": kernels.score_tasks_cuda.launches,
+                     "counts": dict(BACKEND_COUNTS), "stages": stages}
+    savage.run_stage = run_stage
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def run_two_ranks(torch, workdir, device="cuda", prelude=""):
+    """Start phase 15's two ranks (global_mesh_rank, after the Python
+    statements `prelude`) and wait for both: on the card, NCCL on cards 0
+    and 1 where there are two, else two gloo ranks on card 0 (NCCL takes
+    one rank a card); with device "cpu", two gloo ranks on the CPU.
+    Returns the backend, the ranks' devices and each rank's JSON record;
+    raises with the end of each rank's output when a rank fails or both
+    have not ended within PHASE15_TIMEOUT."""
+    import socket
+
+    if device == "cpu":
+        backend, cards = "gloo", ["cpu", "cpu"]
+    elif torch.cuda.device_count() > 1:
+        backend, cards = "nccl", ["cuda:0", "cuda:1"]
+    else:
+        backend, cards = "gloo", ["cuda:0", "cuda:0"]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs, logs, outs = [], [], []
+    try:
+        for rank, card in enumerate(cards):
+            outs.append(os.path.join(workdir, f"global_mesh_rank{rank}.json"))
+            logs.append(open(os.path.join(workdir, f"global_mesh_rank{rank}.log"), "w+"))
+            env = dict(os.environ, RANK=str(rank), PYTHONPATH=here,
+                       **dict(zip(PHASE15_ENV, (backend, str(card), str(port),
+                                                outs[-1]))))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c",
+                 prelude + "\nimport chip_smoke; chip_smoke.global_mesh_rank()"],
+                cwd=here, env=env, stdout=logs[-1], stderr=subprocess.STDOUT,
+                start_new_session=True))
+        deadline = time.monotonic() + PHASE15_TIMEOUT
+        for proc in procs:
+            try:
+                proc.wait(timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+        tails = []
+        for log_file in logs:
+            log_file.seek(0)
+            tails.append(log_file.read()[-3000:])
+            log_file.close()
+    codes = [proc.returncode for proc in procs]
+    if codes != [0, 0]:
+        raise AssertionError(f"phase 15 ranks exited {codes} ({backend} on cards "
+                             f"{cards}):\n" + "\n".join(tails))
+    records = []
+    for path in outs:
+        with open(path) as f:
+            records.append(json.load(f))
+    return backend, cards, records
+
+
+def phase_global_mesh(torch, join_want, savage_want, device="cuda", prelude=""):
+    """Phase 15: two ranks over the mesh that spans them (parallel/mesh.py,
+    the twin of the JAX package's global mesh). (a) the iteration-1 stream
+    through sharded_score_tasks, every rank's four columns bit-equal to
+    one score_tasks_torch call on card 0 (thresholds 0 and
+    far_threshold()) with one launch a rank a call, and the join + verify
+    step on phase 10 (b)'s patch, bit-equal to one device (`join_want`:
+    its sha256 and count) with one launch a rank; (b) SAVAGE on phase 11's
+    two patches as the two ranks: stage a rank-local (no collective, no
+    task under "mesh"), stages b and c through the mesh, stage a/b/c
+    contigs equal phase 11's one-process torch run (`savage_want`, its
+    contig_sets). With device "cpu" the same as two gloo ranks on the CPU
+    (the kernels' plain versions, no launch), after `prelude` in each rank
+    (run_two_ranks). Returns the launches of both kernels over both
+    ranks."""
+    import torch_bench
+    import torch_envelope
+    from haploconduct_torch.ops.score import score_tasks_torch
+
+    one = torch.device("cuda", 0) if device == "cuda" else torch.device(device)
+    launch = 1 if one.type == "cuda" else 0  # a rank's launches a call
+    _, *args = torch_bench.envelope_workload(seed=SEED)
+    want, one_s = [], []
+    for th in phase15_thresholds():
+        t0 = time.perf_counter()
+        ts = score_tasks_torch(*args, mismatch_thresh=th, device=one)
+        one_s.append(time.perf_counter() - t0)
+        want.append(column_digests(ts))
+    del ts, args
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        backend, cards, ranks = run_two_ranks(torch, workdir, device, prelude)
+        wall = time.perf_counter() - t0
+    log(f"[global_mesh] two {backend} ranks on {cards} ({wall:.1f}s with "
+        f"their start); card: {torch_envelope.card_line()}")
+    savage_digests = contig_digests(savage_want)
+    for r in ranks:
+        a, j, b = r["stream"], r["join"], r["savage"]
+        tag = f"rank {r['rank']} ({r['device']})"
+        if a["digests"] != want:
+            raise AssertionError(f"global mesh, {tag}: the stream's columns differ "
+                                 "from one score_tasks_torch call")
+        if a["launches"] != [launch] * len(want):
+            raise AssertionError(f"global mesh, {tag}: launches a call {a['launches']}")
+        log(f"[global_mesh_a] {tag}: {a['tasks']} tasks, all four columns bit-equal "
+            f"to one call at thresholds 0 and {far_threshold():.4f}; launches a call "
+            f"{a['launches']}; call seconds (host clock) "
+            + ", ".join(f"{v:.3f}" for v in a["seconds"]))
+        if (j["digest"], j["n_edges"]) != tuple(join_want) or j["launches"] != launch:
+            raise AssertionError(f"global mesh, {tag}: the join step differs from one "
+                                 f"device or launched {j['launches']} times")
+        log(f"[global_mesh_a] {tag}: sharded_assembly_step bit-equal to one device, "
+            f"{j['n_edges']} slots above the threshold summed over the ranks, "
+            f"{j['launches']} join_verify launch, collectives {j['collectives']}, "
+            f"{j['seconds']:.3f}s")
+        stage_a = [s for s in b["stages"] if s[0] == "a"]
+        rest = [s for s in b["stages"] if s[0] != "a"]
+        if len(stage_a) != 1 or stage_a[0][1:3] != [0, 0] or stage_a[0][3] == 0 \
+                or (stage_a[0][4] > 0) != bool(launch):
+            raise AssertionError(f"global mesh, {tag}: stage a was not rank-local "
+                                 f"on the card: {b['stages']}")
+        if [s[0] for s in rest] != ["b", "c"] or any(
+                s[1] == 0 or s[2] == 0 or s[3] for s in rest):
+            raise AssertionError(f"global mesh, {tag}: stages b and c did not go "
+                                 f"through the mesh: {b['stages']}")
+        if b["counts"]["numpy"] or b["counts"]["native"]:
+            raise AssertionError(f"global mesh, {tag}: tasks on a host backend")
+        if b["digests"] != savage_digests:
+            raise AssertionError(f"global mesh, {tag}: SAVAGE contigs differ from "
+                                 "phase 11's one-process torch run")
+        t = b["timings"]
+        log(f"[global_mesh_b] {tag}: SAVAGE split 2 wall={b['seconds']:.2f}s "
+            f"stage_a={t.get('stage_a_s')}s (gather {t.get('stage_a_gather_s')}s) "
+            f"stage_b={t.get('stage_b_s')}s stage_c={t.get('stage_c_s')}s contigs "
+            f"a/b/c={[b['contigs'][s] for s in 'abc']}; launches={b['launches']} "
+            f"tasks={b['counts']}; per stage [stage, collectives, mesh tasks, torch "
+            f"tasks, launches] {b['stages']}; a/b/c contigs equal phase 11's")
+    log(f"[global_mesh] one score_tasks_torch call on {one}, call seconds (host "
+        "clock) " + ", ".join(f"{v:.3f}" for v in one_s))
+    return {"score_tasks": sum(sum(r["stream"]["launches"]) + r["savage"]["launches"]
+                               for r in ranks),
+            "join_verify": sum(r["join"]["launches"] for r in ranks)}
 
 
 def main() -> int:
@@ -1361,7 +1661,7 @@ def main() -> int:
         log(f"[phases 5-7] {time.perf_counter() - t0:.1f}s")
         split = phase_polyte_split(torch, workdir)
         t0 = time.perf_counter()
-        envelope_launches = phase_savage_envelope(torch, workdir)
+        envelope_launches, envelope_contigs = phase_savage_envelope(torch, workdir)
         log(f"[phase 11] {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     diploid_launches = phase_polyte_diploid(torch)
@@ -1390,6 +1690,7 @@ def main() -> int:
         raise AssertionError("phase 10 did not launch both kernels: "
                              f"{dryrun_launches} and {join_launches}")
     join = measure_join_verify(torch, inputs, one, card0)
+    join_want = (sha256_of(one[0]), one[1])
     del one, inputs
     log(f"[phase 10] {time.perf_counter() - t0:.1f}s; launches score_tasks "
         f"{dryrun_launches}, join_verify {join_launches}")
@@ -1405,6 +1706,12 @@ def main() -> int:
     phase_cands(torch)
     log(f"[phase 14] {time.perf_counter() - t0:.1f}s")
 
+    # phase 15: two ranks over the mesh that spans them
+    t0 = time.perf_counter()
+    global_launches = phase_global_mesh(torch, join_want, envelope_contigs)
+    log(f"[phase 15] {time.perf_counter() - t0:.1f}s; launches over both ranks "
+        f"{global_launches}")
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("haploconduct_tpu", "jax", "jaxlib"))
     if loaded:
@@ -1419,12 +1726,14 @@ def main() -> int:
         "source": "haploconduct_torch/csrc/score_tasks.cu",
         "replaces": "haploconduct_tpu/ops/pallas_score.py:75",
         "launches": (launches + split["launches"] + mesh_launches + dryrun_launches
-                     + envelope_launches + diploid_launches + bench_launches),
+                     + envelope_launches + diploid_launches + bench_launches
+                     + global_launches["score_tasks"]),
         "launches_by_path": {"savage": launches, "polyte_split": split["launches"],
                              "mesh": mesh_launches, "mesh_dryrun": dryrun_launches,
                              "savage_envelope": envelope_launches,
                              "polyte_diploid": diploid_launches,
-                             "bench": bench_launches},
+                             "bench": bench_launches,
+                             "global_mesh": global_launches["score_tasks"]},
         "max_abs_err": max(r["max_abs_err"] for r in report),
         "ms": env["ms"],
         "plain_ms": env["plain_ms"],
@@ -1438,7 +1747,9 @@ def main() -> int:
         "source": "haploconduct_torch/csrc/join_verify.cu",
         # a jnp device program (sharded_pipeline_fn), not a Pallas kernel
         "replaces": "haploconduct_tpu/parallel/mesh.py:404",
-        "launches": join_launches,
+        "launches": join_launches + global_launches["join_verify"],
+        "launches_by_path": {"join_step": join_launches,
+                             "global_mesh": global_launches["join_verify"]},
         "max_abs_err": join["max_abs_err"],
         "ms": join["ms"],
         "plain_ms": join["plain_ms"],

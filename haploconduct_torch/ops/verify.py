@@ -16,8 +16,9 @@ task2 = (trailA, trailB, pos2), argument-swapped for P-S and for P-P with
 ord='2'. This reproduces all 16 reference cases exactly.
 
 Backends: torch (the hand-written kernel on the CUDA device, its plain
-PyTorch version on the CPU; over every card of the process through
-parallel/mesh.py when default_mesh() names more than one), native (the
+PyTorch version on the CPU; through parallel/mesh.py when default_mesh()
+names more than one device: every card of the process, or under a process
+group every rank's own card), native (the
 C++ host engine) and numpy (the f64 oracle). The torch and native scores
 go through the same clamp, exact mismatch rates and per-task and
 per-overlap f64 rechecks at their margins.
@@ -307,7 +308,8 @@ def combine_scores(
 # (under region threads, any thread's); BACKEND_COUNTS["recheck"] sums them
 RECHECK_STATS = {"tasks": 0, "overlaps": 0}
 # cumulative tasks scored per backend; "mesh" counts the torch backend's
-# tasks sharded over several devices, "recheck" the tasks the f64 oracle
+# tasks sharded over several devices (every rank of a mesh that spans
+# ranks counts the whole stream), "recheck" the tasks the f64 oracle
 # re-scored near a threshold (those calls are not a backend's)
 BACKEND_COUNTS = {"torch": 0, "mesh": 0, "native": 0, "numpy": 0, "recheck": 0}
 _counts_lock = threading.Lock()

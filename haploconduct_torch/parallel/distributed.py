@@ -7,7 +7,9 @@ CUDA each rank first takes its own card (LOCAL_RANK, else RANK modulo the
 card count), so scoring and NCCL's object collectives use that card. Work
 items are round-robined over ranks and the per-item results are gathered
 back to every rank with all_gather_object, so the joint stages run
-replicated. A (ReadStore, SubreadDict) pair travels as JSON, its
+replicated, their verify calls over the mesh that spans the ranks
+(parallel/mesh.py; the work items themselves run inside
+mesh.rank_local()). A (ReadStore, SubreadDict) pair travels as JSON, its
 subreads in the reference's subreads.txt text format.
 
 The group's collectives wait for the slowest rank: the gather after

@@ -18,7 +18,10 @@ whose assembly raises is skipped, as in the reference, and recorded in
 `PolyteSplitResult.failed_regions` with its exception; a RuntimeError (the
 kernel wrapper's, CUDA's, out of memory on the card) is raised, not
 skipped, since the host assembly code raises none. With pool_size > 1 the
-region threads score on the calling thread's card.
+region threads score on the calling thread's card. Under a process group
+the regions are round-robined over the ranks and each scores on its
+rank's own card alone (parallel/mesh.py:rank_local); the final pass runs
+on every rank through the mesh that spans them.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import numpy as np
 
 from ..core.reads import ReadStore
 from ..io.subreads import SubreadDict
+from ..parallel import mesh
 from .polyte import PolyteConfig, PolyteResult, concat_to_single_end, run_polyte
 
 
@@ -177,9 +181,15 @@ def run_polyte_split(store: ReadStore, cfg: PolyteSplitConfig) -> PolyteSplitRes
     failures: Dict[int, str] = {}
 
     def run_region(i: int) -> Optional[PolyteResult]:
+        # the ranks assemble different regions, so a region scores on this
+        # rank's own card alone, in whichever thread runs it; the final
+        # pass, the same calls on every rank, goes through the mesh that
+        # spans the ranks. The reference has no such scope: over its
+        # global mesh a region's verify would block
         try:
-            return run_polyte(jobs[i][1], region_cfg, preprocessing=False,
-                              original_store=single_store)
+            with mesh.rank_local():
+                return run_polyte(jobs[i][1], region_cfg, preprocessing=False,
+                                  original_store=single_store)
         except RuntimeError:
             raise  # the card or the kernel failed: never skipped
         except Exception as exc:

@@ -322,7 +322,12 @@ def run_savage(
             ref_index = ReferenceIndex.from_fasta(cfg.reference)
         # multi-process: patches round-robined over ranks; contig sets
         # allgathered so stage b/c run replicated (reference: sequential
-        # per-patch stage a, savage.py:373-396)
+        # per-patch stage a, savage.py:373-396). The ranks assemble
+        # different patches, so each scores on its own card alone
+        # (mesh.rank_local); stage b/c, the same calls on every rank, go
+        # through the mesh that spans the ranks. The reference's patch
+        # loop has no such scope: over its global mesh it would block
+        from ..parallel import mesh
         from ..parallel.distributed import (
             allgather_stage_results, maybe_initialize, my_work_items)
 
@@ -331,35 +336,36 @@ def run_savage(
         local_results: List[StageResult] = []
         cand_s = 0.0
         t_a = time.time()
-        for pidx in mine:
-            t_patch = time.time()
-            pstore, _ = patches[pidx]
-            if ref_index is not None:
-                overlaps = ref_guided_candidates(pstore, ref_index, min_overlap_len)
-            else:
-                overlaps = denovo_candidates(pstore, min_overlap_len, cfg.sfo_mm, cfg.kmer_k)
-            t_cand = time.time() - t_patch
-            cand_s += t_cand
-            params = StageParams(
-                stage="a",
-                min_overlap_len=min_overlap_len,
-                edge_threshold=0.97,
-                clique_size_EC=cfg.min_clique_size,
-                remove_branches=cfg.remove_branches,
-                max_tip_len=max_tip_len,
-                original_readcount=len(pstore),
-                backend=cfg.backend,
-                verbose=cfg.verbose,
-                profile_dir=cfg.profile_dir,
-            )
-            local_results.append(run_stage(params, pstore, overlaps))
-            if cfg.progress:
-                r = local_results[-1]
-                print(f"[savage] patch {pidx + 1}/{len(patches)}: "
-                      f"{len(pstore)} reads, {len(overlaps)} candidates "
-                      f"({t_cand:.0f}s) -> {len(r.store)} contigs in "
-                      f"{r.iterations} its, {time.time() - t_patch:.0f}s",
-                      file=sys.stderr, flush=True)
+        with mesh.rank_local():
+            for pidx in mine:
+                t_patch = time.time()
+                pstore, _ = patches[pidx]
+                if ref_index is not None:
+                    overlaps = ref_guided_candidates(pstore, ref_index, min_overlap_len)
+                else:
+                    overlaps = denovo_candidates(pstore, min_overlap_len, cfg.sfo_mm, cfg.kmer_k)
+                t_cand = time.time() - t_patch
+                cand_s += t_cand
+                params = StageParams(
+                    stage="a",
+                    min_overlap_len=min_overlap_len,
+                    edge_threshold=0.97,
+                    clique_size_EC=cfg.min_clique_size,
+                    remove_branches=cfg.remove_branches,
+                    max_tip_len=max_tip_len,
+                    original_readcount=len(pstore),
+                    backend=cfg.backend,
+                    verbose=cfg.verbose,
+                    profile_dir=cfg.profile_dir,
+                )
+                local_results.append(run_stage(params, pstore, overlaps))
+                if cfg.progress:
+                    r = local_results[-1]
+                    print(f"[savage] patch {pidx + 1}/{len(patches)}: "
+                          f"{len(pstore)} reads, {len(overlaps)} candidates "
+                          f"({t_cand:.0f}s) -> {len(r.store)} contigs in "
+                          f"{r.iterations} its, {time.time() - t_patch:.0f}s",
+                          file=sys.stderr, flush=True)
         # this process's patches, then the wait for and decoding of the
         # other processes' (0 in one process)
         result.timings["stage_a_candidates_s"] = round(cand_s, 2)

@@ -145,9 +145,10 @@ def test_shard_bounds_balance_lanes():
 def test_default_devices_rank_own_card_under_process_group(monkeypatch):
     """The CPU only when asked (HC_TORCH_DEVICE=cpu), card or not; without
     a card and unasked, an error that names how to ask. One process: every
-    visible card. A process group of more than one rank: the rank's own
-    card only, so ranks that verify different streams never shard over
-    each other's cards."""
+    visible card. A process group of more than one rank: default_devices()
+    is the rank's own card only; the mesh spans the ranks, one entry a
+    rank in rank order, and inside rank_local() (where ranks verify
+    different streams) it is the rank's own card again."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert devices.default_devices() == [torch.device("cpu")]
     monkeypatch.delenv("HC_TORCH_DEVICE")
@@ -160,8 +161,14 @@ def test_default_devices_rank_own_card_under_process_group(monkeypatch):
     assert mesh.default_mesh() == devices.default_devices()
     assert devices.default_device() == torch.device("cuda", 0)
     monkeypatch.setattr(distributed, "process_count", lambda: 2)
+    monkeypatch.setattr(distributed, "process_index", lambda: 1)
     assert devices.default_devices() == [torch.device("cuda", 2)]
-    assert mesh.make_mesh() == [torch.device("cuda", 2)]
+    assert mesh.make_mesh() == mesh.default_mesh() == [
+        mesh.RankDevice(0, torch.device("cuda")), mesh.RankDevice(1, torch.device("cuda", 2))]
+    assert mesh.device_count() == 2
+    with mesh.rank_local():
+        assert mesh.make_mesh() == [torch.device("cuda", 2)]
+        assert mesh.device_count() == 1
     monkeypatch.setenv("HC_TORCH_DEVICE", "cpu")
     assert devices.default_devices() == [torch.device("cpu")]
     monkeypatch.setenv("HC_TORCH_DEVICE", "tpu")
@@ -260,7 +267,8 @@ GLOO_WORKER = textwrap.dedent("""
 
     assert distributed.maybe_initialize() and distributed.process_count() == 2
     rank = distributed.process_index()
-    assert mesh.default_mesh() == [torch.device("cpu")]
+    assert mesh.default_mesh() == [mesh.RankDevice(r, torch.device("cpu"))
+                                   for r in range(2)]
     collectives = []
     for name in ("all_gather_object", "all_gather", "all_reduce", "broadcast",
                  "broadcast_object_list", "barrier", "gather", "scatter",
@@ -286,26 +294,39 @@ GLOO_WORKER = textwrap.dedent("""
     packed = store.pack()
     s_torch = Settings(min_overlap_len=80, edge_threshold=0.97, backend="torch")
     vr_np = V.verify_overlaps(store, packed, ov, s_torch.derive(backend="numpy"))
-    if rank == 1:  # calls the other rank does not make: no collective waits
-        V.verify_overlaps(store, packed, ov[: len(ov) // 3], s_torch)
-    before = V.BACKEND_COUNTS["torch"]
-    vr = V.verify_overlaps(store, packed, ov, s_torch)
-    assert V.BACKEND_COUNTS["torch"] - before == vr.n_tasks > 0, V.BACKEND_COUNTS
-    assert V.BACKEND_COUNTS["mesh"] == 0, V.BACKEND_COUNTS
-    for f in ("v1", "v2", "pos1", "mismatch_rate"):
-        assert np.array_equal(vr.edges[f], vr_np.edges[f]), f
-    assert np.array_equal(vr.nonedge_mask, vr_np.nonedge_mask)
-    assert np.allclose(vr.edges["score"], vr_np.edges["score"], atol=2e-3)
-
-    # a whole stage: torch == oracle
     kw = dict(stage="a", min_overlap_len=80, edge_threshold=0.97,
               original_readcount=len(store))
+    with mesh.rank_local():  # each rank on its own device, no collective
+        assert mesh.default_mesh() == [torch.device("cpu")]
+        if rank == 1:  # calls the other rank does not make
+            V.verify_overlaps(store, packed, ov[: len(ov) // 3], s_torch)
+        before = V.BACKEND_COUNTS["torch"]
+        vr_own = V.verify_overlaps(store, packed, ov, s_torch)
+        assert V.BACKEND_COUNTS["torch"] - before == vr_own.n_tasks > 0, V.BACKEND_COUNTS
+        res_own = run_stage(StageParams(backend="torch", **kw), store, ov)
+    assert V.BACKEND_COUNTS["mesh"] == 0, V.BACKEND_COUNTS
+    assert collectives == [], collectives
+    # the same calls on both ranks: through the mesh that spans them
+    before = dict(V.BACKEND_COUNTS)
+    vr = V.verify_overlaps(store, packed, ov, s_torch)
+    assert V.BACKEND_COUNTS["mesh"] - before["mesh"] == vr.n_tasks, V.BACKEND_COUNTS
+    assert V.BACKEND_COUNTS["torch"] == before["torch"] and collectives
+    for got in (vr, vr_own):
+        for f in ("v1", "v2", "pos1", "mismatch_rate"):
+            assert np.array_equal(got.edges[f], vr_np.edges[f]), f
+        assert np.array_equal(got.nonedge_mask, vr_np.nonedge_mask)
+        assert np.allclose(got.edges["score"], vr_np.edges["score"], atol=2e-3)
+    assert np.array_equal(vr.scored, vr_own.scored)
+
+    # a whole stage: torch == oracle, through the mesh and on one device
+    before = V.BACKEND_COUNTS["mesh"]
     res = run_stage(StageParams(backend="torch", **kw), store, ov)
+    assert V.BACKEND_COUNTS["mesh"] > before, V.BACKEND_COUNTS
     res_np = run_stage(StageParams(backend="numpy", **kw), store, ov)
     recs = [res.store.seq_str(i) for i in range(len(res.store))]
     assert recs == [res_np.store.seq_str(i) for i in range(len(res_np.store))]
+    assert recs == [res_own.store.seq_str(i) for i in range(len(res_own.store))]
     assert recs
-    assert collectives == [], collectives
     with open(sys.argv[1], "w") as f:
         f.write("\\n".join(recs))
     dist.destroy_process_group()
@@ -315,10 +336,11 @@ GLOO_WORKER = textwrap.dedent("""
 def test_two_process_gloo_scorer_and_stage(tmp_path):
     """Mirror of tests/test_distributed.py:test_two_process_global_mesh_scorer_and_stage
     on two gloo ranks: both run verify_overlaps and run_stage with the torch
-    backend on the same store, each on its own device, with no collective
-    inside either (rank 1 makes extra verify calls, which a mesh spanning
-    the ranks would wait on). Both agree with the f64 oracle, with each
-    other and with the JAX package's oracle stage."""
+    backend on the same store, first inside mesh.rank_local(), each on its
+    own device with no collective (rank 1 makes extra verify calls, which
+    the mesh that spans the ranks would wait on), then outside it, through
+    that mesh (every task counted under "mesh"). Both agree with the f64
+    oracle, with each other and with the JAX package's oracle stage."""
     worker = tmp_path / "worker.py"
     worker.write_text(GLOO_WORKER % {"repo": REPO})
     s = socket.socket()
