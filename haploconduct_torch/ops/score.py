@@ -42,6 +42,7 @@ import torch
 
 from ..core.reads import N_CODE, PAD_CODE
 from ..parallel.devices import default_device
+from ..utils.log import nested_phase
 from . import device_cache
 from .kernels import score_tasks_cuda
 
@@ -459,18 +460,24 @@ def score_tasks_torch(
     """Score tasks on `device` (None: the torch backend's device,
     parallel/devices.py:default_device), a TaskScores of numpy arrays. On a
     CUDA device the kernel runs or this raises; it never falls back to the
-    CPU."""
-    if device is None:
-        device = default_device()
-    device = check_device(device)
-    if len(row_a) == 0:
-        return _empty_scores()
-    lens, row_a, row_b, pos64 = check_tasks(codes, lens_by_row, row_a, row_b, pos)
-    # the matrix stays on the device across calls: only rows that changed
-    # since this thread's last call travel (ops/device_cache.py)
-    comb = device_cache.comb_for_device(codes, quals, lens, pack_host(codes, quals),
-                                        device)
-    cols = [torch.from_numpy(c.astype(np.int32)).to(device)
-            for c in (lens, row_a, row_b, pos64)]
-    sums = [c.cpu().numpy() for c in score_tasks(comb, *cols, float(mismatch_thresh))]
-    return finish_task_scores(*sums, pos64, lens[row_a], lens[row_b], int(min_read_len))
+    CPU. Its phases (score.prepare, .matrix, .device, .finish) go to the
+    PhaseTimer whose phase is open on this thread (utils/log.py)."""
+    with nested_phase("score.prepare"):
+        if device is None:
+            device = default_device()
+        device = check_device(device)
+        if len(row_a) == 0:
+            return _empty_scores()
+        lens, row_a, row_b, pos64 = check_tasks(codes, lens_by_row, row_a, row_b, pos)
+        combined = pack_host(codes, quals)
+    with nested_phase("score.matrix"):
+        # the matrix stays on the device across calls: only rows that
+        # changed since this thread's last call travel (ops/device_cache.py)
+        comb = device_cache.comb_for_device(codes, quals, lens, combined, device)
+    with nested_phase("score.device"):
+        # the columns' upload, the launch, and the wait for the sums
+        cols = [torch.from_numpy(c.astype(np.int32)).to(device)
+                for c in (lens, row_a, row_b, pos64)]
+        sums = [c.cpu().numpy() for c in score_tasks(comb, *cols, float(mismatch_thresh))]
+    with nested_phase("score.finish"):
+        return finish_task_scores(*sums, pos64, lens[row_a], lens[row_b], int(min_read_len))

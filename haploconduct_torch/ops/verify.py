@@ -34,6 +34,7 @@ import numpy as np
 from ..core.reads import PackedUnits, ReadStore
 from ..parallel import mesh
 from ..utils.config import Settings
+from ..utils.log import nested_phase
 from .score import (RECHECK_MARGIN, TaskScores, score_tasks_native,
                     score_tasks_numpy, score_tasks_torch)
 
@@ -337,72 +338,83 @@ def verify_overlaps(
       src/EdgeCalculator.cpp:254-379) within RECHECK_MARGIN of a threshold
       has BOTH its tasks re-scored in f64 and is re-combined.
     The native engine goes through the same steps at NATIVE_RECHECK_MARGIN.
-    """
-    if s.backend == "auto":
-        from .autoback import resolve_backend
 
-        s = s.derive(backend=resolve_backend())
-    if s.backend not in ("torch", "native", "numpy"):
-        raise ValueError(f"unknown backend {s.backend!r}")
-    plan, meta = plan_tasks(store, packed, ov)
-    lens_by_row = np.concatenate([packed.lens, packed.lens])
-    args = (packed.codes, packed.quals, lens_by_row, plan.row_first, plan.row_second, plan.pos)
-    kw = dict(mismatch_thresh=s.mismatch, min_read_len=s.min_read_len)
-    n_tasks = len(plan.row_first)
-    # this call's rechecks, counted locally: region threads verify at once
-    rechecked = {"tasks": 0, "overlaps": 0}
-    margin = RECHECK_MARGIN
-    ts = None
-    if s.backend == "native":
-        margin = NATIVE_RECHECK_MARGIN
-        ts = score_tasks_native(*args, **kw)
-        if ts is not None:
-            _count("native", n_tasks)
-    elif s.backend == "torch":
-        if mesh.device_count() > 1:
-            _count("mesh", n_tasks)
-            ts = mesh.sharded_score_tasks(*args, **kw)
-        else:
-            _count("torch", n_tasks)
-            ts = score_tasks_torch(*args, **kw, device=mesh.default_mesh()[0])
-    if ts is None:  # numpy, or the native extension is unavailable
-        _count("numpy", n_tasks)
-        ts = score_tasks_numpy(*args, **kw)
-        exact_path = False
-    else:
-        exact_path = s.exact and n_tasks > 0
-        # clamp: rounding must not push a score past the (unattainable)
-        # 1.0 ceiling _near_threshold relies on
-        ts = ts._replace(score=np.minimum(np.asarray(ts.score, np.float64), 1.0))
-        ts = _exact_mismatch_rates(plan, ts, lens_by_row, kw)
-        if exact_path:
+    Its phases (verify.plan, .score, .rates, .recheck, .combine, .select;
+    the torch call's score.* inside verify.score) go to the PhaseTimer
+    whose phase is open on this thread (utils/log.py), else nowhere.
+    """
+    with nested_phase("verify.plan"):
+        if s.backend == "auto":
+            from .autoback import resolve_backend
+
+            s = s.derive(backend=resolve_backend())
+        if s.backend not in ("torch", "native", "numpy"):
+            raise ValueError(f"unknown backend {s.backend!r}")
+        plan, meta = plan_tasks(store, packed, ov)
+        lens_by_row = np.concatenate([packed.lens, packed.lens])
+        args = (packed.codes, packed.quals, lens_by_row, plan.row_first, plan.row_second,
+                plan.pos)
+        kw = dict(mismatch_thresh=s.mismatch, min_read_len=s.min_read_len)
+        n_tasks = len(plan.row_first)
+        # this call's rechecks, counted locally: region threads verify at once
+        rechecked = {"tasks": 0, "overlaps": 0}
+        margin = RECHECK_MARGIN
+    with nested_phase("verify.score"):
+        ts = None
+        if s.backend == "native":
+            margin = NATIVE_RECHECK_MARGIN
+            ts = score_tasks_native(*args, **kw)
+            if ts is not None:
+                _count("native", n_tasks)
+        elif s.backend == "torch":
+            if mesh.device_count() > 1:
+                _count("mesh", n_tasks)
+                ts = mesh.sharded_score_tasks(*args, **kw)
+            else:
+                _count("torch", n_tasks)
+                ts = score_tasks_torch(*args, **kw, device=mesh.default_mesh()[0])
+        oracle = ts is None  # numpy, or the native extension is unavailable
+        if oracle:
+            _count("numpy", n_tasks)
+            ts = score_tasks_numpy(*args, **kw)
+    exact_path = not oracle and s.exact and n_tasks > 0
+    if not oracle:
+        with nested_phase("verify.rates"):
+            # clamp: rounding must not push a score past the (unattainable)
+            # 1.0 ceiling _near_threshold relies on
+            ts = ts._replace(score=np.minimum(np.asarray(ts.score, np.float64), 1.0))
+            ts = _exact_mismatch_rates(plan, ts, lens_by_row, kw)
+    if exact_path:
+        with nested_phase("verify.recheck"):
             ts = _recheck_near_threshold(plan, ts, args, kw, s, rechecked, margin)
 
-    edges_all = combine_scores(ov, plan, meta, ts, s)
+    with nested_phase("verify.combine"):
+        edges_all = combine_scores(ov, plan, meta, ts, s)
 
     if exact_path:
-        borderline_ov = (_near_threshold(edges_all["score"], s.edge_threshold, margin)
-                         | _near_threshold(edges_all["score"], s.ov_threshold, margin))
-        if np.any(borderline_ov):
-            rechecked["overlaps"] = int(np.sum(borderline_ov))
-            ts = _recheck_tasks_of(plan, ts, args, kw, borderline_ov, rechecked)
-            # patch only the rechecked overlaps' rows
-            idx = np.flatnonzero(borderline_ov)
-            edges_all[idx] = combine_scores(ov, plan, meta, ts, s, sel=idx)
-    with _counts_lock:
-        BACKEND_COUNTS["recheck"] += rechecked["tasks"]
-        RECHECK_STATS.update(rechecked)
-
-    score = edges_all["score"]
-    mism = edges_all["mismatch_rate"]
-    is_edge = (score > s.edge_threshold) | (mism <= s.merge_contigs)
-    nonedge = ~is_edge & (score > s.ov_threshold)
-    return VerifyResult(
-        edges=edges_all[is_edge],
-        nonedge_mask=nonedge,
-        scored=edges_all,
-        n_tasks=n_tasks,
-    )
+        with nested_phase("verify.recheck"):
+            borderline_ov = (_near_threshold(edges_all["score"], s.edge_threshold, margin)
+                             | _near_threshold(edges_all["score"], s.ov_threshold, margin))
+            if np.any(borderline_ov):
+                rechecked["overlaps"] = int(np.sum(borderline_ov))
+                ts = _recheck_tasks_of(plan, ts, args, kw, borderline_ov, rechecked)
+                # patch only the rechecked overlaps' rows
+                idx = np.flatnonzero(borderline_ov)
+                edges_all[idx] = combine_scores(ov, plan, meta, ts, s, sel=idx)
+    with nested_phase("verify.select"):
+        with _counts_lock:
+            BACKEND_COUNTS["recheck"] += rechecked["tasks"]
+            RECHECK_STATS.update(rechecked)
+        score = edges_all["score"]
+        mism = edges_all["mismatch_rate"]
+        is_edge = (score > s.edge_threshold) | (mism <= s.merge_contigs)
+        nonedge = ~is_edge & (score > s.ov_threshold)
+        return VerifyResult(
+            edges=edges_all[is_edge],
+            nonedge_mask=nonedge,
+            scored=edges_all,
+            n_tasks=n_tasks,
+        )
 
 
 def _exact_mismatch_rates(plan: TaskPlan, ts: TaskScores, lens_by_row, kw) -> TaskScores:

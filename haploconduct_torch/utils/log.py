@@ -8,9 +8,11 @@ and GFA graph exports — written only when an output directory is set.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
+import threading
 import time
 from typing import Optional
 
@@ -25,13 +27,24 @@ class PhaseTimer:
     With `annotate=True` each span also opens a
     torch.profiler.record_function, so phases show up as named host spans
     in a torch.profiler trace captured around the run (see run_stage's
-    profile_dir)."""
+    profile_dir).
+
+    While one of its phases is open, a timer is this thread's current
+    timer (`PhaseTimer.current()`): a function called inside the phase
+    opens its own phases on it with `nested_phase`, under dotted names
+    ("verify.plan")."""
+
+    _open = threading.local()
 
     def __init__(self, verbose: bool = False, annotate: bool = False):
         self.times: dict = {}
         self.verbose = verbose
         self.annotate = annotate
-        self._stack: list = []
+
+    @classmethod
+    def current(cls) -> Optional["PhaseTimer"]:
+        """The timer whose phase is open on this thread, else None."""
+        return getattr(cls._open, "timer", None)
 
     class _Span:
         def __init__(self, timer: "PhaseTimer", name: str):
@@ -44,11 +57,14 @@ class PhaseTimer:
 
                 self._ann = torch.profiler.record_function(self.name)
                 self._ann.__enter__()
+            self._outer = PhaseTimer.current()
+            PhaseTimer._open.timer = self.timer
             self.t0 = time.perf_counter()
             return self
 
         def __exit__(self, *exc):
             dt = time.perf_counter() - self.t0
+            PhaseTimer._open.timer = self._outer
             if self._ann is not None:
                 self._ann.__exit__(None, None, None)
             self.timer.times[self.name] = self.timer.times.get(self.name, 0.0) + dt
@@ -58,6 +74,13 @@ class PhaseTimer:
 
     def __call__(self, name: str) -> "PhaseTimer._Span":
         return self._Span(self, name)
+
+
+def nested_phase(name: str):
+    """Phase `name` on the timer whose phase is open on this thread; where
+    none is open it times nothing."""
+    timer = PhaseTimer.current()
+    return contextlib.nullcontext() if timer is None else timer(name)
 
 
 class RunLogger:

@@ -2,6 +2,7 @@
 group) against the JAX package: contigs must be byte-identical to the
 reference driven with its f64 numpy oracle."""
 
+import json
 import os
 import socket
 import subprocess
@@ -146,7 +147,17 @@ def test_stage_profile_dir_writes_chrome_trace(tmp_path):
     run_stage(p, store, dryrun_overlaps(store))
     traces = [f for f in os.listdir(tmp_path) if f.endswith(".trace.json")]
     assert len(traces) == 1
-    assert '"verify"' in (tmp_path / traces[0]).read_text()
+    text = (tmp_path / traces[0]).read_text()
+    assert '"verify"' in text
+    # the verification's own phases lie inside the iteration's verify phase
+    events = [e for e in json.loads(text)["traceEvents"] if "dur" in e]
+    spans = {name: [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                    for e in events if e.get("name") == name]
+             for name in ("verify", "verify.plan", "score.device")}
+    for name in ("verify.plan", "score.device"):
+        assert spans[name], name
+        for a, b in spans[name]:
+            assert any(lo <= a and b <= hi for lo, hi in spans["verify"]), (name, a, b)
 
 
 JAX_FREE = textwrap.dedent("""
