@@ -111,7 +111,7 @@ def run_iteration(
     # ---- orientation labelling
     with timer("labelling"):
         graph.sort_edges()
-        stats["conflicts"] = algos.vertex_labelling_heuristic(graph)
+        stats["conflicts"] = algos.vertex_labelling_heuristic(graph, stats)
         graph.check_no_duplicate_edges()
 
     with timer("graph_cleanup"):

@@ -193,6 +193,9 @@ class _LabelCtx:
         self.merged_sm = merged_sm
         self.maxdeg = int(deg.max()) if n else 0
         self.order = [int(v) for v in sort_vertices_by_indegree(g)]
+        # adj_in flat as (edge id, owning vertex) in list order; adj_out's is
+        # (e_scan, c_v1) below. The tail rebuilds the lists it touches from them
+        self.in_flat, self.in_dst = in_flat, in_dst
 
         # classification scan: alive edges in (source vertex, adjacency
         # position) order — the reference's iteration order
@@ -259,7 +262,7 @@ class _LabelCtx:
 
     def classify(self, orientations: np.ndarray):
         """Vectorized port of the reference's per-edge conflict scan.
-        Returns (to_flip, to_move, to_delete) edge-id lists in the same
+        Returns (to_flip, to_move, to_delete) edge-id arrays in the same
         (source vertex, adjacency position) order the loop emitted."""
         l1 = orientations[self.c_v1]
         l2 = orientations[self.c_v2]
@@ -268,9 +271,8 @@ class _LabelCtx:
         mv = ~ok & ~par_violation
         move_mask = mv & ((self.c_pos1 < 0)
                           | ((self.c_pos1 == 0) & (self.c_v1 > self.c_v2)))
-        return (self.e_scan[mv & ~move_mask].tolist(),
-                self.e_scan[move_mask].tolist(),
-                self.e_scan[par_violation].tolist())
+        return (self.e_scan[mv & ~move_mask], self.e_scan[move_mask],
+                self.e_scan[par_violation])
 
     def count_deletes(self, orientations: np.ndarray, sub: np.ndarray) -> int:
         l1 = orientations[self.c_v1[sub]]
@@ -279,45 +281,62 @@ class _LabelCtx:
         return int(np.count_nonzero(~ok & (self.c_par[sub] != (l1 == l2))))
 
 
-def _switch_edge_orientation(g: OverlapGraph, e: int) -> bool:
-    """Edge::switch_edge_orientation (src/Edge.h:90-121) applied to edge e
-    in place; returns True if the edge changed direction (must be moved)."""
-    rows = g.edges
-    r = rows[e]
-    pos1, pos2 = int(r["pos3"]), int(r["pos4"])
-    pos3, pos4 = int(r["pos1"]), int(r["pos2"])
-    ori1, ori2 = not bool(r["ori1"]), not bool(r["ori2"])
-    v1, v2 = int(r["v1"]), int(r["v2"])
-    ordc = r["ord"]
-    moved = False
-    if pos1 < 0 or (pos1 == 0 and v1 > v2):
-        v1, v2 = v2, v1
-        ori1, ori2 = ori2, ori1
-        pos1 = -pos1
-        if pos2 < 0:
-            ordc = b"1"
-            pos2 = -pos2
-        elif ordc != b"-":
-            ordc = b"2"
-        moved = True
-    else:
-        if pos2 < 0:
-            pos2 = -pos2
-            ordc = b"2"
-        elif ordc != b"-":
-            ordc = b"1"
-    rows["pos1"][e], rows["pos2"][e] = pos1, pos2
-    rows["pos3"][e], rows["pos4"][e] = pos3, pos4
-    rows["ori1"][e], rows["ori2"][e] = ori1, ori2
-    rows["v1"][e], rows["v2"][e] = v1, v2
-    rows["ord"][e] = ordc
+def _switch_edge_orientations(rows: np.ndarray, ids: np.ndarray) -> np.ndarray:
+    """Edge::switch_edge_orientation (src/Edge.h:90-121) applied in place to
+    the edges `ids`, all at once; returns the mask of those that changed
+    direction (must be moved)."""
+    r = rows[ids]
+    pos1, pos2 = r["pos3"], r["pos4"]
+    v1, v2 = r["v1"], r["v2"]
+    moved = (pos1 < 0) | ((pos1 == 0) & (v1 > v2))
+    neg2 = pos2 < 0
+    rows["pos1"][ids] = np.where(moved, -pos1, pos1)
+    rows["pos2"][ids] = np.where(neg2, -pos2, pos2)
+    rows["pos3"][ids], rows["pos4"][ids] = r["pos1"], r["pos2"]
+    ori1, ori2 = ~r["ori1"], ~r["ori2"]
+    rows["ori1"][ids] = np.where(moved, ori2, ori1)
+    rows["ori2"][ids] = np.where(moved, ori1, ori2)
+    rows["v1"][ids] = np.where(moved, v2, v1)
+    rows["v2"][ids] = np.where(moved, v1, v2)
+    # ord as the reference's four branches set it
+    rows["ord"][ids] = np.where(
+        neg2, np.where(moved, b"1", b"2"),
+        np.where(r["ord"] == b"-", b"-", np.where(moved, b"2", b"1")))
     return moved
 
 
-def vertex_labelling_heuristic(g: OverlapGraph) -> int:
+def _rebuild_adj(adj: List[List[int]], flat: np.ndarray, owner: np.ndarray,
+                 gone: np.ndarray, new_ids: np.ndarray,
+                 new_owner: np.ndarray) -> None:
+    """Rewrite each list of `adj` that loses an edge marked in `gone` or
+    gains one of `new_ids`, once: its surviving edges in their old order,
+    then the gained ones in `new_ids` order, as per-edge list.remove and
+    append calls would leave it. `flat`/`owner` hold every entry of `adj`
+    (edge id, list it is in) in list order."""
+    lost = gone[flat]
+    touched = np.unique(np.concatenate([owner[lost], new_owner]))
+    if len(touched) == 0:
+        return
+    hit = np.zeros(len(adj), dtype=bool)
+    hit[touched] = True
+    keep = hit[owner] & ~lost
+    ids = np.concatenate([flat[keep], new_ids])
+    own = np.concatenate([owner[keep], new_owner])
+    flat_new = ids[np.argsort(own, kind="stable")].tolist()
+    ends = np.cumsum(np.bincount(own, minlength=len(adj))[touched]).tolist()
+    start = 0
+    for v, end in zip(touched.tolist(), ends):
+        adj[v] = flat_new[start:end]
+        start = end
+
+
+def vertex_labelling_heuristic(g: OverlapGraph,
+                               stats: "dict | None" = None) -> int:
     """Try up to 100 BFS labellings, keep the one deleting fewest edges,
     then flip/move/delete edges to make every edge agree with the labels.
-    Returns the number of conflicting edges removed.
+    Returns the number of conflicting edges removed; with `stats`, also
+    records there how many edges were rewritten without a move
+    (`label_flipped`) and with one (`label_moved`).
 
     Identical results to the reference's full-restart scheme
     (GraphAlgos.cpp:178-349) at a fraction of the cost: orientations are
@@ -343,8 +362,7 @@ def vertex_labelling_heuristic(g: OverlapGraph) -> int:
 
     if best_count > 0:
         # conflicted components = those containing a parity-violating edge
-        del_arr = np.asarray(to_delete, dtype=np.int64)
-        conf_comps = np.unique(comp[g.edges["v1"][del_arr].astype(np.int64)])
+        conf_comps = np.unique(comp[g.edges["v1"][to_delete].astype(np.int64)])
         conf_set = np.zeros(n, dtype=bool)
         conf_set[conf_comps] = True
         sub = np.flatnonzero(conf_set[comp[ctx.c_v1]])
@@ -369,27 +387,24 @@ def vertex_labelling_heuristic(g: OverlapGraph) -> int:
             ctx.bfs(best_seed, orientations, roots, scratch_vis)
             to_flip, to_move, to_delete = ctx.classify(orientations)
 
-    for e in to_flip:
-        moved = _switch_edge_orientation(g, e)
-        assert not moved
-    if to_move or to_delete:
-        g.invalidate_adj_cache()  # direct list surgery below
-    for e in to_move:
-        rows = g.edges
-        old_v1, old_v2 = int(rows["v1"][e]), int(rows["v2"][e])
-        moved = _switch_edge_orientation(g, e)
-        assert moved
-        # relocate the edge index between adjacency lists
-        g.adj_out[old_v1].remove(e)
-        g.adj_in[old_v2].remove(e)
-        g.adj_out[int(rows["v1"][e])].append(e)
-        g.adj_in[int(rows["v2"][e])].append(e)
-    for e in sorted(to_delete, reverse=False):
-        rows = g.edges
-        v, w = int(rows["v1"][e]), int(rows["v2"][e])
-        g.adj_out[v].remove(e)
-        g.adj_in[w].remove(e)
-        g.alive[e] = False
+    rows = g.edges
+    ids = np.concatenate([to_flip, to_move])
+    moved = _switch_edge_orientations(rows, ids)
+    nf = len(to_flip)
+    assert not moved[:nf].any() and moved[nf:].all()
+    if stats is not None:
+        stats["label_flipped"] = nf
+        stats["label_moved"] = len(to_move)
+    if len(to_move) or len(to_delete):
+        g.invalidate_adj_cache()
+        gone = np.zeros(len(rows), dtype=bool)
+        gone[to_move] = True
+        gone[to_delete] = True
+        _rebuild_adj(g.adj_out, ctx.e_scan, ctx.c_v1, gone, to_move,
+                     rows["v1"][to_move].astype(np.int64))
+        _rebuild_adj(g.adj_in, ctx.in_flat, ctx.in_dst, gone, to_move,
+                     rows["v2"][to_move].astype(np.int64))
+        g.alive[to_delete] = False
     g.vertex_orientations = orientations
     return len(to_delete)
 

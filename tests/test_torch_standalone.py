@@ -1,7 +1,8 @@
 """haploconduct_torch stands alone: no module of it, and not chip_smoke.py,
 torch_envelope.py, torch_bench.py or torch_cands.py, imports the JAX package or jax; a
 process that refuses both imports every module of the port and runs it; importing it tunes the allocator; the host
-modules it copied are the reference's, byte for byte; and state crosses
+modules it copied are the reference's, byte for byte, but for the
+definitions it rewrote; and state crosses
 from the reference's objects to the port's only as plain arrays."""
 
 import ast
@@ -46,6 +47,15 @@ COPIED = [
     "utils/simulate.py", "workflows/evaluate.py", "workflows/phasing_bench.py",
     "io/converters.py",
 ]
+
+# copied modules in which the port rewrote some top-level definitions: every
+# other top-level statement is still the reference's, in the same order
+REWRITTEN = {
+    # labelling applies its flips, moves and deletions as whole arrays
+    "graph/algos.py": {"_LabelCtx", "_switch_edge_orientation",
+                       "_switch_edge_orientations", "_rebuild_adj",
+                       "vertex_labelling_heuristic"},
+}
 
 REFUSE = textwrap.dedent("""
     import sys
@@ -202,9 +212,21 @@ def test_import_tunes_the_allocator():
     assert proc.stdout.strip() == "True"
 
 
+def _top_level(path: Path, rewritten: set):
+    """Source of each top-level statement of a module, but the definitions
+    named in `rewritten`."""
+    src = path.read_text()
+    return [ast.get_source_segment(src, node) for node in ast.parse(src).body
+            if getattr(node, "name", None) not in rewritten]
+
+
 @pytest.mark.parametrize("rel", COPIED)
 def test_copied_host_module_is_the_reference(rel):
-    assert (PORT / rel).read_bytes() == (REPO / "haploconduct_tpu" / rel).read_bytes()
+    port, ref = PORT / rel, REPO / "haploconduct_tpu" / rel
+    if rel in REWRITTEN:
+        assert _top_level(port, REWRITTEN[rel]) == _top_level(ref, REWRITTEN[rel])
+    else:
+        assert port.read_bytes() == ref.read_bytes()
 
 
 def test_store_from_arrays_carries_a_reference_store():
