@@ -16,6 +16,13 @@ The group's collectives wait for the slowest rank: the gather after
 SAVAGE stage a waits while that rank assembles its last patch, so the
 group's timeout (COLLECTIVE_TIMEOUT) is set far above a stage's time
 rather than left at NCCL's ten-minute default.
+
+GATHER_STATS counts this process's object gathers (under a lock): the
+calls of all_gather_object, the bytes of the blobs it received (every
+rank's, its own among them), the seconds inside all_gather_object (the
+wait for the slowest rank and the exchange) and the seconds of the JSON
+encode and decode around them. A single process gathers nothing and
+counts nothing.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ from __future__ import annotations
 import datetime
 import json
 import os
+import threading
+import time
 from typing import List, Sequence
 
 from ..core.reads import ReadStore
@@ -30,6 +39,21 @@ from ..io.subreads import subreads_from_text, subreads_to_text
 
 
 COLLECTIVE_TIMEOUT = datetime.timedelta(hours=4)
+
+GATHER_STATS = {"calls": 0, "bytes": 0, "wait_s": 0.0, "codec_s": 0.0}
+_stats_lock = threading.Lock()
+
+
+def _count(**add) -> None:
+    with _stats_lock:
+        for key, value in add.items():
+            GATHER_STATS[key] += value
+
+
+def gather_stats() -> dict:
+    """A copy of GATHER_STATS, read under its lock."""
+    with _stats_lock:
+        return dict(GATHER_STATS)
 
 
 def _dist():
@@ -92,7 +116,10 @@ def allgather_bytes(payload: bytes) -> List[bytes]:
     if process_count() == 1:
         return [payload]
     gathered: list = [None] * process_count()
+    t0 = time.perf_counter()
     _dist().all_gather_object(gathered, bytes(payload))
+    _count(calls=1, bytes=sum(len(b) for b in gathered),
+           wait_s=time.perf_counter() - t0)
     return gathered
 
 
@@ -138,12 +165,17 @@ def allgather_indexed(items: Sequence, indices: Sequence[int], n_total: int,
     index no process produced comes back as None."""
     if process_count() == 1:
         return list(items)
+    t0 = time.perf_counter()
     my_blob = json.dumps({str(idx): encode(res)
                           for idx, res in zip(indices, items)}).encode()
+    codec_s = time.perf_counter() - t0
+    gathered = allgather_bytes(my_blob)
+    t0 = time.perf_counter()
     merged: dict = {}
-    for data in allgather_bytes(my_blob):
+    for data in gathered:
         for key, blob in json.loads(data.decode()).items():
             merged[int(key)] = decode(blob) if blob is not None else None
+    _count(codec_s=codec_s + time.perf_counter() - t0)
     missing = [i for i in range(n_total) if i not in merged]
     if missing and not allow_missing:
         raise RuntimeError(f"work items {missing} produced by no process")

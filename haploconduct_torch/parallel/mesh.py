@@ -47,6 +47,15 @@ the gather for up to distributed.COLLECTIVE_TIMEOUT (4 h). Ranks that
 pass different streams raise. A plain list of devices is this rank's own
 and runs no collective.
 
+Every gather across ranks (the header of `_same_call`, the task-sum and
+slot-score blocks, and the all_reduce of the count), with its copy back to
+the host, opens the phase `mesh.gather` on the timer whose phase is open
+on the thread (utils/log.py:nested_phase; inside run_iteration's `verify`
+it reaches phase_times), and is counted in GATHER_STATS: its calls and
+the bytes this rank received (every rank's tensor, its own among them).
+The first gather of a call also waits for this rank's own shard on the
+card, which the gathered tensors follow on its stream.
+
 Where the ranks make different calls, the port departs from the
 reference, in which those calls would block: inside `rank_local()`
 (SAVAGE's stage-a patches, polyte-split's regions) `default_mesh()` is
@@ -73,8 +82,13 @@ from ..ops.kmer_device import kmer_hashes, kmer_table
 from ..ops.score import (TaskScores, _empty_scores, check_device, check_tasks,
                          finish_task_scores, pack_for_device, pack_host,
                          score_tasks)
+from ..utils.log import nested_phase
 from . import distributed
 from .devices import default_devices
+
+# this process's gathers across ranks and the bytes it received (under a lock)
+GATHER_STATS = {"calls": 0, "bytes": 0}
+_stats_lock = threading.Lock()
 
 
 class RankDevice(NamedTuple):
@@ -171,20 +185,30 @@ def _gather_device() -> torch.device:
     return torch.device("cpu")
 
 
+def _count_gather(every: List[torch.Tensor]) -> None:
+    with _stats_lock:
+        GATHER_STATS["calls"] += 1
+        GATHER_STATS["bytes"] += sum(t.numel() * t.element_size() for t in every)
+
+
 def _all_gather(mine: torch.Tensor) -> List[torch.Tensor]:
-    """Every rank's tensor of mine's shape and type, in rank order."""
+    """Every rank's tensor of mine's shape and type, in rank order, on the
+    host."""
     import torch.distributed as dist
 
-    every = [torch.empty_like(mine) for _ in range(distributed.process_count())]
-    dist.all_gather(every, mine)
+    with nested_phase("mesh.gather"):
+        every = [torch.empty_like(mine) for _ in range(distributed.process_count())]
+        dist.all_gather(every, mine)
+        every = [t.cpu() for t in every]
+    _count_gather(every)
     return every
 
 
 def _same_call(what: str, header, where: torch.device) -> None:
     """Raise on every rank unless every rank passed the same `header`: a
     gather of streams cut differently would mix them."""
-    mine = torch.tensor(header, dtype=torch.float64, device=where)
-    every = _all_gather(mine)
+    mine = torch.tensor(header, dtype=torch.float64)
+    every = _all_gather(mine.to(where))
     if not all(torch.equal(h, mine) for h in every):
         raise RuntimeError(
             f"{what} over a mesh that spans ranks needs the same call on every "
@@ -279,7 +303,7 @@ def _gather_task_sums(entries, bounds, outs, sums, header) -> None:
         for row, part in zip(block, out):
             row[at:at + n] = part.to(where, torch.float64)
         at += n
-    every = [b.cpu().numpy() for b in _all_gather(block)]
+    every = [b.numpy() for b in _all_gather(block)]
     # a rank's block holds its entries' spans in entry order
     taken = np.zeros_like(held)
     for e, s, t in zip(entries, bounds[:-1], bounds[1:]):
@@ -384,10 +408,13 @@ def _gather_slot_scores(entries, outs, scores, step, header) -> int:
     for row, (sc, edges) in zip(block, outs):
         row.copy_(sc)
         count += int(edges)
-    every = [b.cpu().numpy() for b in _all_gather(block)]
-    dist.all_reduce(count)  # the reference's psum of the count
+    every = [b.numpy() for b in _all_gather(block)]
+    with nested_phase("mesh.gather"):
+        dist.all_reduce(count)  # the reference's psum of the count
+        total = int(count.item())
+    _count_gather([count] * distributed.process_count())
     taken = np.zeros_like(held)
     for i, e in enumerate(entries):
         scores[i * step:(i + 1) * step] = every[e.rank][taken[e.rank]]
         taken[e.rank] += 1
-    return int(count.item())
+    return total

@@ -329,7 +329,8 @@ def run_savage(
         # loop has no such scope: over its global mesh it would block
         from ..parallel import mesh
         from ..parallel.distributed import (
-            allgather_stage_results, maybe_initialize, my_work_items)
+            allgather_stage_results, gather_stats, maybe_initialize, my_work_items,
+            process_count)
 
         maybe_initialize()
         mine = my_work_items(len(patches))
@@ -375,8 +376,15 @@ def run_savage(
                 result.stage_a_phase_times[name] = (
                     result.stage_a_phase_times.get(name, 0.0) + sec)
         t0 = time.time()
+        before = gather_stats()
         patch_results = allgather_stage_results(local_results, mine, len(patches))
         result.timings["stage_a_gather_s"] = round(time.time() - t0, 2)
+        if process_count() > 1:
+            # its split: inside all_gather_object (the wait for the slowest
+            # rank and the exchange), and the JSON encode and decode
+            after = gather_stats()
+            for key in ("wait_s", "codec_s"):
+                result.timings[f"stage_a_gather_{key}"] = round(after[key] - before[key], 2)
 
         combined, combined_sub = combine_patch_contigs(patch_results, id_maps)
         result.stage_a = patch_results[0]

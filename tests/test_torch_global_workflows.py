@@ -16,11 +16,12 @@ from haploconduct_tpu.utils.simulate import (mutate_sequence, random_genome,
                                               simulate_reads)
 from haploconduct_tpu.workflows.polyte import PolyteConfig as RefPolyteConfig
 from haploconduct_tpu.workflows.polyte import run_polyte as ref_run_polyte
+from haploconduct_torch.core.reads import ReadStore
+from haploconduct_torch.utils import simulate as port_sim
 from haploconduct_torch.workflows.polyte_split import run_polyte_split
 from haploconduct_torch.workflows.savage import SavageConfig, run_savage
 
 import chip_smoke
-from test_torch_cli_ranks import _small_store
 from test_torch_global_mesh import rank_json, run_ranks
 from test_torch_polyte import POLYTE_KW, contigs
 from torch_helpers import make_store
@@ -51,34 +52,40 @@ SAVAGE_BODY = RECORDER + """
                                                    simulate_reads)
     from haploconduct_torch.workflows import savage
 
+    with open(os.path.join(workdir, "savage.json")) as f:
+        kw = json.load(f)
     rng = np.random.default_rng(5)
-    genome = random_genome(rng, 1200)
+    genome = random_genome(rng, kw["genome_len"])
     haps = [genome, mutate_sequence(genome, rng, sub_rate=0.03)]
-    seqs, quals = simulate_reads(haps, coverage=15, read_len=120, rng=rng)
+    seqs, quals = simulate_reads(haps, coverage=kw["coverage"], read_len=120, rng=rng)
     store = ReadStore()
     for i, (sq, q) in enumerate(zip(seqs, quals)):
         store.add_single(i, sq, q)
     store.readcount_single = len(seqs)
     record(savage, "run_stage", lambda params, *a, **k: params.stage)
-    res = savage.run_savage(store, savage.SavageConfig(split_num=2, backend="torch",
-                                                       min_clique_size=4))
+    res = savage.run_savage(store, savage.SavageConfig(split_num=kw["split_num"],
+                                                       backend="torch", min_clique_size=4))
     save_json({"contigs": {s: res.contigs(s) for s in "abc"}, "calls": calls,
                "collectives": collectives})
 """
 
 
-def test_two_rank_savage_split_2_patches_rank_local_stages_b_c_on_the_mesh(tmp_path):
-    """SAVAGE with split_num=2 and the torch backend as two gloo ranks: each
-    rank's stage a (its one patch) scores on its own device with no
-    collective inside, the patches are gathered, and stages b and c go
-    through the mesh that spans the ranks (tasks under "mesh", none under
-    "torch"). Both ranks' stage a/b/c contigs equal one process's run."""
-    store = _small_store()
+def savage_over_ranks(tmp_path, ranks: int, **kw):
+    """SAVAGE_BODY on `ranks` gloo ranks, its store drawn from `kw`
+    (genome_len, coverage) and cut into kw["split_num"] patches, one a
+    rank: each rank's stage a scores on its own device with no collective
+    inside, the patches are gathered, stages b and c go through the mesh
+    that spans the ranks (tasks under "mesh", none under "torch"), and
+    every rank's stage a/b/c contigs equal one process's run_savage with
+    the same split_num."""
+    store = savage_store(kw["genome_len"], kw["coverage"])
     single = {s: list(map(list, c)) for s, c in chip_smoke.contig_sets(run_savage(
-        store, SavageConfig(split_num=2, backend="torch", min_clique_size=4))).items()}
+        store, SavageConfig(split_num=kw["split_num"], backend="torch",
+                            min_clique_size=4))).items()}
     assert set(single) == set("abc") and single["c"][1]
-    run_ranks(tmp_path, SAVAGE_BODY)
-    for rank in range(2):
+    (tmp_path / "savage.json").write_text(json.dumps(kw))
+    run_ranks(tmp_path, SAVAGE_BODY, ranks)
+    for rank in range(ranks):
         got = rank_json(tmp_path, rank)
         assert got["contigs"] == single
         stage_a, *bc = got["calls"]
@@ -88,6 +95,38 @@ def test_two_rank_savage_split_2_patches_rank_local_stages_b_c_on_the_mesh(tmp_p
             assert n_collectives > 0 and mesh_tasks > 0 and torch_tasks == 0
         # stage a's gather of the patches, outside run_stage
         assert "all_gather_object" in got["collectives"]
+
+
+def test_two_rank_savage_split_2_patches_rank_local_stages_b_c_on_the_mesh(tmp_path):
+    """SAVAGE with split_num=2 and the torch backend as two gloo ranks: each
+    rank's stage a (its one patch) scores on its own device with no
+    collective inside, the patches are gathered, and stages b and c go
+    through the mesh that spans the ranks (tasks under "mesh", none under
+    "torch"). Both ranks' stage a/b/c contigs equal one process's run."""
+    savage_over_ranks(tmp_path, 2, genome_len=1200, coverage=15, split_num=2)
+
+
+def test_four_rank_savage_split_4_whole_sample_is_one_process(tmp_path):
+    """The savage-sample-4rank deployment at a CPU's size: a 600 bp sample
+    of two strains cut into 4 patches over four gloo ranks, one a rank,
+    stages a -> b -> c with the abundance filter. Every rank's final
+    contigs (and its stage a and b contigs) are byte-equal to one
+    process's run_savage with split_num=4, and to each other."""
+    savage_over_ranks(tmp_path, 4, genome_len=600, coverage=60, split_num=4)
+
+
+def savage_store(genome_len: int, coverage: float):
+    """SAVAGE_BODY's draw in this process: two strains at 3% of a
+    `genome_len` genome, 120 bp reads at `coverage` a strain."""
+    rng = np.random.default_rng(5)
+    genome = port_sim.random_genome(rng, genome_len)
+    haps = [genome, port_sim.mutate_sequence(genome, rng, sub_rate=0.03)]
+    seqs, quals = port_sim.simulate_reads(haps, coverage=coverage, read_len=120, rng=rng)
+    store = ReadStore()
+    for i, (sq, q) in enumerate(zip(seqs, quals)):
+        store.add_single(i, sq, q)
+    store.readcount_single = len(seqs)
+    return store
 
 
 SPLIT_BODY = RECORDER + """
