@@ -183,6 +183,10 @@ class FNO1:
         self.lines: Set[str] = set()
         self.found: Set[int] = set()  # packed (lo<<32|hi) pair keys
         self._tbl: Optional[dict] = None
+        # non-edge overlaps reconsidered after the edge check, and those of
+        # them that fell back to the scalar port (run_iteration's stats)
+        self.nonedge_rows = 0
+        self.nonedge_scalar = 0
         # node -> superreads containing it
         self.nodes_to_sr: Dict[int, List[Superread]] = {}
         for sr in builder.single_SR:
@@ -206,7 +210,7 @@ class FNO1:
         if not (self.s.no_inclusions and d["perc"] == 100):
             self.lines.add(line)
 
-    def _update_overlap(self, erow: np.void, pseudo: bool = False) -> None:
+    def _update_overlap(self, erow: np.void) -> None:
         """Port of updateOverlap (FindNextOverlaps.cpp:25-327)."""
         g, store, s, b = self.g, self.store, self.s, self.b
         u, v = int(erow["v1"]), int(erow["v2"])
@@ -365,13 +369,15 @@ class FNO1:
         )
         return self._tbl
 
-    def _update_overlaps_batch(self, rows: np.ndarray) -> None:
+    def _update_overlaps_batch(self, rows: np.ndarray) -> int:
+        """Apply updateOverlap to every row, in row order; returns how
+        many rows went through the scalar port."""
         if len(rows) == 0:
-            return
+            return 0
         if self._force_scalar:
             for erow in rows:
                 self._update_overlap(erow)
-            return
+            return len(rows)
         T = self._ensure_tables()
         b = self.b
         v1 = rows["v1"].astype(np.int64)
@@ -384,7 +390,7 @@ class FNO1:
               | (vis1 & vis2) & (anyP[v1] | anyP[v2]))
         if not fb.any():
             self._vector_run(rows)
-            return
+            return 0
         # scalar-fallback rows interleave in row order to keep `found`
         # first-wins marks identical to the pure scalar sweep
         start = 0
@@ -396,6 +402,7 @@ class FNO1:
             start = f + 1
         if start < len(rows):
             self._vector_run(rows[start:])
+        return int(np.count_nonzero(fb))
 
     def _vector_run(self, rows: np.ndarray) -> None:
         """All-single batch: every visited endpoint's superreads are
@@ -543,25 +550,51 @@ class FNO1:
 
     def _reconsider_nonedges(self, overlaps: np.ndarray) -> None:
         """Rebuild pseudo-edges (score 0) from stored nonedge overlaps
-        (FindNextOverlaps.cpp:635-813, resolve_orientations path)."""
-        store, g = self.store, self.g
-        for r in overlaps:
-            i1 = store.id_to_index[int(r["id1"])]
-            i2 = store.id_to_index[int(r["id2"])]
-            if g.check_edge(i1, i2, reverse_allowed=True) > 0:
-                continue
-            erow = np.zeros(1, dtype=rows_dtype())[0]
-            erow["v1"], erow["v2"] = i1, i2
-            erow["score"] = 0.0
-            erow["pos1"], erow["pos2"] = r["pos1"], r["pos2"]
-            erow["ori1"] = r["ori1"] == b"+"
-            erow["ori2"] = r["ori2"] == b"+"
-            erow["ord"] = r["ord"]
-            perc2 = int(r["perc2"])
-            perc1 = int(r["perc1"])
-            erow["perc"] = int(0.5 * (perc1 + perc2)) if perc2 > 0 else perc1
-            erow["len1"], erow["len2"] = r["len1"], r["len2"]
-            self._update_overlap(erow, pseudo=True)
+        (FindNextOverlaps.cpp:635-813, resolve_orientations path).
+
+        All rows at once: ids to vertices, checkEdge's rule against packed
+        keys of the alive edges (the forward edge's score if there is one,
+        else the reverse edge's; where a pair has several edges, the first
+        in adj_out order), then one batch in row order, so the scalar
+        fallback and the first-wins `found` marks are the per-row loop's."""
+        from ..utils.log import nested_phase
+
+        with nested_phase("fno.nonedges"):
+            id_to_index = self.store.id_to_index
+            n = len(overlaps)
+            i1 = np.fromiter((id_to_index[k] for k in overlaps["id1"].tolist()),
+                             np.int64, count=n)
+            i2 = np.fromiter((id_to_index[k] for k in overlaps["id2"].tolist()),
+                             np.int64, count=n)
+            g = self.g
+            eidx, _ = g._flat_adj_out()
+            ekey = (g.edges["v1"][eidx] << 32) | g.edges["v2"][eidx]
+            # np.unique's index is each key's first occurrence in adj_out order
+            keys, first = np.unique(ekey, return_index=True)
+            kscore = g.edges["score"][eidx[first]]
+            score = np.full(n, -1.0)
+            if len(keys):
+                # the reverse edge's score, then the forward edge's over it
+                for key in ((i2 << 32) | i1, (i1 << 32) | i2):
+                    p = np.minimum(np.searchsorted(keys, key), len(keys) - 1)
+                    hit = keys[p] == key
+                    score[hit] = kscore[p[hit]]
+            keep = ~(score > 0)
+            r = overlaps[keep]
+            rows = np.zeros(len(r), dtype=rows_dtype())
+            rows["v1"], rows["v2"] = i1[keep], i2[keep]
+            rows["pos1"], rows["pos2"] = r["pos1"], r["pos2"]
+            rows["ori1"] = r["ori1"] == b"+"
+            rows["ori2"] = r["ori2"] == b"+"
+            rows["ord"] = r["ord"]
+            perc1 = r["perc1"].astype(np.int64)
+            perc2 = r["perc2"].astype(np.int64)
+            # int(0.5 * (perc1 + perc2)): a float, truncated toward zero
+            rows["perc"] = np.where(perc2 > 0, (0.5 * (perc1 + perc2)).astype(np.int64),
+                                    perc1)
+            rows["len1"], rows["len2"] = r["len1"], r["len2"]
+            self.nonedge_rows += len(rows)
+            self.nonedge_scalar += self._update_overlaps_batch(rows)
 
     def _inclusion_overlaps(self) -> None:
         """Induce S-S edges through removed inclusion vertices

@@ -175,6 +175,8 @@ def run_iteration(
         if s.fno == 1:
             fno = FNO1(builder)
             lines = fno.run(nonedge_overlaps=None if s.optimize else nonedge)
+            stats["fno_nonedges"] = fno.nonedge_rows
+            stats["fno_nonedge_scalar"] = fno.nonedge_scalar
         else:
             lines = find_next_overlaps3(builder)
     stats["next_overlaps"] = len(lines)

@@ -55,6 +55,8 @@ REWRITTEN = {
     "graph/algos.py": {"_LabelCtx", "_switch_edge_orientation",
                        "_switch_edge_orientations", "_rebuild_adj",
                        "vertex_labelling_heuristic"},
+    # FNO1 reconsiders its non-edge overlaps as one batch
+    "assemble/fno.py": {"FNO1"},
 }
 
 REFUSE = textwrap.dedent("""
