@@ -394,9 +394,9 @@ def store_seqs(store):
 @contextlib.contextmanager
 def pinned_mesh(devices):
     """mesh.default_mesh() names `devices` inside the block, whatever cards
-    are visible, and is restored after: with one device every verify call
-    scores through score_tasks_torch on it, counted under "torch"; with
-    more, through the mesh (ops/verify.py routes by device_count())."""
+    are visible, and is restored after: every verify call scores over
+    `devices`, counted under "torch" with one device and under "mesh" with
+    more (ops/verify.py)."""
     from haploconduct_torch.parallel import mesh
 
     saved = mesh.default_mesh

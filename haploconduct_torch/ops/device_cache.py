@@ -255,8 +255,10 @@ def _cache(device: torch.device) -> CombCache:
 
 def comb_for_devices(codes: np.ndarray, quals: np.ndarray, lens_by_row: np.ndarray,
                      combined: np.ndarray, devices: Sequence) -> List[torch.Tensor]:
-    """comb_for_device on each distinct device of `devices` (the rows'
-    keys computed once), one matrix per entry."""
+    """`combined` (the host pack of codes and quals: ops/score.py:
+    pack_host) on each entry of `devices` (None: the torch backend's
+    device), one matrix per entry, assembled by this thread's cache of
+    each distinct device (the rows' keys computed once)."""
     devices = [_device(d) for d in devices]
     rows = _Rows(codes, quals, lens_by_row, combined) if _enabled() else None
     out: Dict[torch.device, torch.Tensor] = {}
@@ -264,14 +266,6 @@ def comb_for_devices(codes: np.ndarray, quals: np.ndarray, lens_by_row: np.ndarr
         if dev not in out:
             out[dev] = _cache(dev).get(codes, quals, lens_by_row, combined, dev, rows)
     return [out[dev] for dev in devices]
-
-
-def comb_for_device(codes: np.ndarray, quals: np.ndarray, lens_by_row: np.ndarray,
-                    combined: np.ndarray, device=None) -> torch.Tensor:
-    """`combined` (the host pack of codes and quals: ops/score.py:
-    pack_host) on `device` (None: the torch backend's device), assembled
-    by this thread's cache of that device."""
-    return comb_for_devices(codes, quals, lens_by_row, combined, [device])[0]
 
 
 def assemble_reference_numpy(old_comb: np.ndarray, reuse_old, reuse_new,

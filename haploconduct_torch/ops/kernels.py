@@ -131,7 +131,7 @@ def score_tasks_cuda(comb: torch.Tensor, lens: torch.Tensor, row_a: torch.Tensor
     int32 row lengths <= RW; row_a, row_b, pos: (n,) int32 task columns.
     Returns per task (sum_log f64, counted i32, mismatches i32, rejected
     i32). The caller guarantees row ids in range and pos >= 0
-    (ops/score.py:score_tasks_torch checks). `group` (4 or 32) picks the
+    (ops/score.py:check_tasks checks). `group` (4 or 32) picks the
     lanes per task (0: default_group of the row width). The kernel's
     table is sized by the largest phred in comb, read here on the card
     (the host waits for that read). Raises on a refused launch."""

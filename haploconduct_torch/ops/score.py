@@ -25,11 +25,12 @@ Backends:
 - score_tasks_native (C++ OpenMP, float64): the host engine.
 - score_tasks_torch (float32 lanes): per task on a CUDA device through the
   hand-written kernel (ops/kernels.py:score_tasks_cuda), on the CPU through
-  score_tasks_plain, the kernel's plain PyTorch version. Both sum log p in
-  f32 over at most SEG=512 lanes and add those segment sums per task in
-  f64, so callers can re-check any result within RECHECK_MARGIN of a
-  decision threshold on the oracle and f32 rounding never flips an edge
-  decision.
+  score_tasks_plain, the kernel's plain PyTorch version, each over a mesh
+  of one or more entries (parallel/mesh.py:sharded_score_tasks). Both sum
+  log p in f32 over at most SEG=512 lanes and add those segment sums per
+  task in f64, so callers can re-check any result within RECHECK_MARGIN
+  of a decision threshold on the oracle and f32 rounding never flips an
+  edge decision.
 """
 
 from __future__ import annotations
@@ -42,8 +43,6 @@ import torch
 
 from ..core.reads import N_CODE, PAD_CODE
 from ..parallel.devices import default_device
-from ..utils.log import nested_phase
-from . import device_cache
 from .kernels import score_tasks_cuda
 
 RECHECK_MARGIN = 2e-3  # |score - threshold| below this -> redo in f64
@@ -458,26 +457,13 @@ def score_tasks_torch(
     device=None,
 ) -> TaskScores:
     """Score tasks on `device` (None: the torch backend's device,
-    parallel/devices.py:default_device), a TaskScores of numpy arrays. On a
-    CUDA device the kernel runs or this raises; it never falls back to the
-    CPU. Its phases (score.prepare, .matrix, .device, .finish) go to the
-    PhaseTimer whose phase is open on this thread (utils/log.py)."""
-    with nested_phase("score.prepare"):
-        if device is None:
-            device = default_device()
-        device = check_device(device)
-        if len(row_a) == 0:
-            return _empty_scores()
-        lens, row_a, row_b, pos64 = check_tasks(codes, lens_by_row, row_a, row_b, pos)
-        combined = pack_host(codes, quals)
-    with nested_phase("score.matrix"):
-        # the matrix stays on the device across calls: only rows that
-        # changed since this thread's last call travel (ops/device_cache.py)
-        comb = device_cache.comb_for_device(codes, quals, lens, combined, device)
-    with nested_phase("score.device"):
-        # the columns' upload, the launch, and the wait for the sums
-        cols = [torch.from_numpy(c.astype(np.int32)).to(device)
-                for c in (lens, row_a, row_b, pos64)]
-        sums = [c.cpu().numpy() for c in score_tasks(comb, *cols, float(mismatch_thresh))]
-    with nested_phase("score.finish"):
-        return finish_task_scores(*sums, pos64, lens[row_a], lens[row_b], int(min_read_len))
+    parallel/devices.py:default_device; a list: that mesh), a TaskScores
+    of numpy arrays: parallel/mesh.py:sharded_score_tasks over a mesh of
+    that one entry. On a CUDA device the kernel runs or this raises; it
+    never falls back to the CPU."""
+    from ..parallel.mesh import sharded_score_tasks  # mesh.py imports this module
+
+    if not isinstance(device, list):
+        device = [default_device() if device is None else device]
+    return sharded_score_tasks(codes, quals, lens_by_row, row_a, row_b, pos,
+                               mismatch_thresh, min_read_len, mesh=device)

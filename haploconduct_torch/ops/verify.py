@@ -16,12 +16,12 @@ task2 = (trailA, trailB, pos2), argument-swapped for P-S and for P-P with
 ord='2'. This reproduces all 16 reference cases exactly.
 
 Backends: torch (the hand-written kernel on the CUDA device, its plain
-PyTorch version on the CPU; through parallel/mesh.py when default_mesh()
-names more than one device: every card of the process, or under a process
-group every rank's own card), native (the
-C++ host engine) and numpy (the f64 oracle). The torch and native scores
-go through the same clamp, exact mismatch rates and per-task and
-per-overlap f64 rechecks at their margins.
+PyTorch version on the CPU, over parallel/mesh.py:default_mesh(): every
+card of the process, or under a process group every rank's own card;
+one card is a mesh of one entry), native (the C++ host engine) and numpy
+(the f64 oracle). The torch and native scores go through the same clamp,
+exact mismatch rates and per-task and per-overlap f64 rechecks at their
+margins.
 """
 
 from __future__ import annotations
@@ -367,12 +367,9 @@ def verify_overlaps(
             if ts is not None:
                 _count("native", n_tasks)
         elif s.backend == "torch":
-            if mesh.device_count() > 1:
-                _count("mesh", n_tasks)
-                ts = mesh.sharded_score_tasks(*args, **kw)
-            else:
-                _count("torch", n_tasks)
-                ts = score_tasks_torch(*args, **kw, device=mesh.default_mesh()[0])
+            devices = mesh.default_mesh()
+            _count("mesh" if len(devices) > 1 else "torch", n_tasks)
+            ts = score_tasks_torch(*args, **kw, device=devices)
         oracle = ts is None  # numpy, or the native extension is unavailable
         if oracle:
             _count("numpy", n_tasks)

@@ -16,7 +16,9 @@ and an entry may repeat. Its device paths:
   every shard is launched before any result is copied back (so distinct
   cards run at the same time), and the per-task sums are copied back in
   task order and finished once on the host. A task is scored whole by
-  one launch, so its sums are those of a single call.
+  one launch, so its sums are those of a single call. It is the torch
+  backend's one scoring body: ops/score.py:score_tasks_torch is its call
+  over a mesh of one entry.
 - `sharded_verify` (reference :545-574, over `sharded_score_fn`): the four
   per-task columns of `sharded_score_tasks` in the reference's f32/i32
   types. The reference sums all W lanes of a task in one f32 sum; here
@@ -51,7 +53,8 @@ Every gather across ranks (the header of `_same_call`, the task-sum and
 slot-score blocks, and the all_reduce of the count), with its copy back to
 the host, opens the phase `mesh.gather` on the timer whose phase is open
 on the thread (utils/log.py:nested_phase; inside run_iteration's `verify`
-it reaches phase_times), and is counted in GATHER_STATS: its calls and
+it reaches phase_times; a scoring call's lie inside its `score.device`),
+and is counted in GATHER_STATS: its calls and
 the bytes this rank received (every rank's tensor, its own among them).
 The first gather of a call also waits for this rank's own shard on the
 card, which the gathered tensors follow on its stream.
@@ -147,9 +150,8 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "data") -> list:
 
 
 def device_count() -> int:
-    """The number of entries of default_mesh(): more than one routes the
-    torch backend's verification through sharded_score_tasks
-    (ops/verify.py), as the reference routes its own."""
+    """The number of entries of default_mesh(), the mesh the torch
+    backend's verification scores over (ops/verify.py)."""
     return len(default_mesh())
 
 
@@ -245,42 +247,55 @@ def sharded_score_tasks(
     name the same device. A CUDA shard launches the kernel or raises; a
     CPU shard runs its plain version. Over a mesh that spans ranks every
     rank passes the same arrays, launches its own entries' shards, and
-    the per-task sums are gathered to every rank (_gather_task_sums)."""
-    entries, spans = _mesh(mesh)
-    if len(row_a) == 0:
-        return _empty_scores()
-    lens, row_a, row_b, pos64 = check_tasks(codes, unit_lens_by_row, row_a, row_b, pos)
-    len_a, len_b = lens[row_a], lens[row_b]
-    lanes = np.maximum(np.minimum(len_a - pos64, len_b), 0)
-    bounds = shard_bounds(lanes, len(entries))
-    me = distributed.process_index()
-    mine = [(e.device, s, t) for e, s, t in zip(entries, bounds[:-1], bounds[1:])
-            if e.rank == me and t > s]
-    # every upload first, then every launch: a card's launch waits on
-    # nothing but its own uploads. Each distinct device keeps its matrix
-    # across calls, and only changed rows travel (ops/device_cache.py)
-    distinct = list(dict.fromkeys(dev for dev, _, _ in mine))
-    combs = device_cache.comb_for_devices(codes, quals, lens, pack_host(codes, quals),
-                                          distinct) if distinct else []
-    lens32 = torch.from_numpy(lens.astype(np.int32))
-    on_device = {dev: (comb, lens32.to(dev)) for dev, comb in zip(distinct, combs)}
-    shards = [(dev, slice(s, t), [torch.from_numpy(c[s:t].astype(np.int32)).to(dev)
-                                  for c in (row_a, row_b, pos64)])
-              for dev, s, t in mine]
-    outs = [score_tasks(*on_device[dev], *cols, float(mismatch_thresh))
-            for dev, _, cols in shards]
-    sums = [np.empty(len(row_a), np.float64)] + [np.empty(len(row_a), np.int32)
-                                                 for _ in range(3)]
-    if spans:
-        header = (len(row_a), *codes.shape, int(lanes.sum()), float(mismatch_thresh),
-                  len(entries))
-        _gather_task_sums(entries, bounds, outs, sums, header)
-    else:
-        # each shard's sums are copied straight into their span, in task order
-        for (_, span, _), out in zip(shards, outs):
-            for whole, part in zip(sums, out):
-                torch.from_numpy(whole[span]).copy_(part)
-    return finish_task_scores(*sums, pos64, len_a, len_b, int(min_read_len))
+    the per-task sums are gathered to every rank (_gather_task_sums). Its
+    phases (score.prepare, .matrix, .device, .finish) go to the PhaseTimer
+    whose phase is open on this thread (utils/log.py)."""
+    with nested_phase("score.prepare"):
+        entries, spans = _mesh(mesh)
+        n = len(row_a)
+        if n == 0:
+            return _empty_scores()
+        lens, row_a, row_b, pos64 = check_tasks(codes, unit_lens_by_row, row_a, row_b, pos)
+        # lanes are counted only to cut shards or to compare the ranks' calls
+        lanes = (np.maximum(np.minimum(lens[row_a] - pos64, lens[row_b]), 0)
+                 if len(entries) > 1 or spans else None)
+        bounds = np.array([0, n]) if lanes is None else shard_bounds(lanes, len(entries))
+        me = distributed.process_index()
+        mine = [(e.device, s, t) for e, s, t in zip(entries, bounds[:-1], bounds[1:])
+                if e.rank == me and t > s]
+        distinct = list(dict.fromkeys(dev for dev, _, _ in mine))
+        combined = pack_host(codes, quals) if distinct else None
+    with nested_phase("score.matrix"):
+        # each distinct device keeps its matrix across calls, and only
+        # changed rows travel
+        combs = (device_cache.comb_for_devices(codes, quals, lens, combined, distinct)
+                 if distinct else [])
+    with nested_phase("score.device"):
+        # every upload first, then every launch: a card's launch waits on
+        # nothing but its own uploads
+        lens32 = torch.from_numpy(lens.astype(np.int32))
+        on_device = {dev: (comb, lens32.to(dev)) for dev, comb in zip(distinct, combs)}
+        shards = [(dev, slice(s, t), [torch.from_numpy(c[s:t].astype(np.int32)).to(dev)
+                                      for c in (row_a, row_b, pos64)])
+                  for dev, s, t in mine]
+        outs = [score_tasks(*on_device[dev], *cols, float(mismatch_thresh))
+                for dev, _, cols in shards]
+        # the host buffers come from torch's allocator, as Tensor.cpu()'s do:
+        # a copy from the card into fresh numpy arrays took longer
+        host = [torch.empty(n, dtype=torch.float64)] + [torch.empty(n, dtype=torch.int32)
+                                                        for _ in range(3)]
+        sums = [h.numpy() for h in host]
+        if spans:
+            header = (n, *codes.shape, int(lanes.sum()), float(mismatch_thresh),
+                      len(entries))
+            _gather_task_sums(entries, bounds, outs, sums, header)
+        else:
+            # each shard's sums are copied straight into their span, in task order
+            for (_, span, _), out in zip(shards, outs):
+                for whole, part in zip(host, out):
+                    whole[span].copy_(part)
+    with nested_phase("score.finish"):
+        return finish_task_scores(*sums, pos64, lens[row_a], lens[row_b], int(min_read_len))
 
 
 def _gather_task_sums(entries, bounds, outs, sums, header) -> None:

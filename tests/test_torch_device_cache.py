@@ -233,7 +233,7 @@ def test_cache_on_and_off_give_the_same_contigs(monkeypatch):
 
 def test_two_threads_alternating_stores_get_their_own_matrices():
     """Two threads, each alternating between two stores of its own that
-    share 5 of their 6 units, call comb_for_device in lockstep: every
+    share 5 of their 6 units, call comb_for_devices in lockstep: every
     matrix is the thread's exact pack, and every call after a thread's
     first reuses the 10 rows it shares with that thread's last call."""
     rng = np.random.default_rng(7)
@@ -250,7 +250,7 @@ def test_two_threads_alternating_stores_get_their_own_matrices():
             for i in range(6):
                 barrier.wait()
                 codes, quals, lens, combined = stores[t][i % 2]
-                got = dc.comb_for_device(codes, quals, lens, combined, "cpu")
+                got = dc.comb_for_devices(codes, quals, lens, combined, ["cpu"])[0]
                 if not np.array_equal(got.numpy(), combined):
                     errors.append((t, i))
         except Exception as e:  # noqa: BLE001  (reported below)

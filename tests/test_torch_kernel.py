@@ -250,7 +250,7 @@ def _cache_inputs():
 def test_cached_matrix_on_card_equals_a_fresh_upload(cuda_device):
     """Each iteration's matrix, assembled on the card from the last one's
     rows and the changed rows, is torch.equal to a fresh upload, through
-    comb_for_device and through a mesh of card 0 twice; every iteration
+    comb_for_devices and through a mesh of card 0 twice; every iteration
     after the first reuses rows, and the scores equal the cache off's."""
     from haploconduct_torch.ops import device_cache
     from haploconduct_torch.ops.score import pack_host
@@ -259,7 +259,8 @@ def test_cached_matrix_on_card_equals_a_fresh_upload(cuda_device):
     seq = _cache_inputs()
     device_cache.reset_stats()
     for i, (codes, quals, lens) in enumerate(seq):
-        got = device_cache.comb_for_device(codes, quals, lens, pack_host(codes, quals), card)
+        got = device_cache.comb_for_devices(codes, quals, lens, pack_host(codes, quals),
+                                            [card])[0]
         assert got.device == card and got.data_ptr() % 16 == 0
         assert torch.equal(got, pack_for_device(codes, quals, card)), i
     stats = dict(device_cache.TRANSFER_STATS)
@@ -295,8 +296,8 @@ def test_cached_matrices_of_two_threads_on_card(cuda_device):
             for i in range(6):
                 barrier.wait()
                 codes, quals, lens = seq[(2 * t + i) % 4]
-                got = device_cache.comb_for_device(codes, quals, lens,
-                                                   pack_host(codes, quals), card)
+                got = device_cache.comb_for_devices(codes, quals, lens,
+                                                    pack_host(codes, quals), [card])[0]
                 if not torch.equal(got, pack_for_device(codes, quals, card)):
                     errors.append((t, i))
         except Exception as e:  # noqa: BLE001  (reported below)

@@ -22,6 +22,7 @@ from test_torch_pipeline import STEP_KW, tiny_rows
 from torch_helpers import torch_on_cpu  # noqa: F401  (autouse)
 
 RANKS = 2
+SCORE_PHASES = ("score.prepare", "score.matrix", "score.device", "score.finish")
 COLUMNS = ("sum_log", "counted", "mismatches", "rejected")
 NEW_TIMINGS = ("stage_a_gather_wait_s", "stage_a_gather_codec_s")
 
@@ -112,14 +113,17 @@ def ranks_run(tmp_path_factory):
 
 def test_mesh_gather_phase_under_an_open_timer_and_none_without(ranks_run):
     """Each gather of sharded_score_tasks and sharded_assembly_step opens
-    `mesh.gather` on the open timer; a timer with no phase open records
-    nothing."""
+    `mesh.gather` on the open timer, the scoring call's inside its
+    score.device; a timer with no phase open records nothing."""
     for report, _ in ranks_run:
         assert report["closed_times"] == ["verify"]
         for key in ("score_times", "step_times"):
             times = report[key]
-            assert sorted(times) == ["mesh.gather", "verify"], times
             assert 0 < times["mesh.gather"] <= times["verify"]
+        assert sorted(report["step_times"]) == ["mesh.gather", "verify"]
+        times = report["score_times"]
+        assert sorted(times) == sorted(("mesh.gather", "verify") + SCORE_PHASES), times
+        assert times["mesh.gather"] <= times["score.device"]
 
 
 def test_sharded_results_bit_equal_with_and_without_a_timer(ranks_run):
@@ -198,5 +202,5 @@ def test_one_process_runs_none_of_it():
     timer = PhaseTimer()
     with timer("verify"):
         mesh.sharded_score_tasks(*multi_segment_case(), mesh=[torch.device("cpu")] * 2)
-    assert sorted(timer.times) == ["verify"]
+    assert sorted(timer.times) == sorted(("verify",) + SCORE_PHASES)
     assert distributed.gather_stats() == stats and mesh.GATHER_STATS == mesh_stats

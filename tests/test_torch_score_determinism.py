@@ -64,23 +64,42 @@ def _off_by_one_ulp(fn):
     return moved
 
 
+def _at_threads(threads, fn, *args):
+    """fn(*args) with torch on `threads` intra-op threads."""
+    saved = torch.get_num_threads()
+    try:
+        torch.set_num_threads(threads)
+        return fn(*args)
+    finally:
+        torch.set_num_threads(saved)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def start_threads():
+    """The process's thread count; the module's tests run on one thread
+    unless they set their own count. The suite runs in several worker
+    processes on shared cores, where idle intra-op threads spin against
+    the other workers: a step of this module's small ops then took up to
+    hundreds of times longer."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield n
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
-def case():
+def case(start_threads):
+    """The multi-segment case and its bits at the process's thread count."""
     comb, cols = _columns(multi_segment_case())
-    return comb, cols, {th: _plain(comb, cols, th) for th in (0.0, 0.3)}
+    return comb, cols, {th: _at_threads(start_threads, _plain, comb, cols, th)
+                        for th in (0.0, 0.3)}
 
 
 @pytest.mark.parametrize("threads", [1, 2, 3, 7])
 @pytest.mark.parametrize("thresh", [0.0, 0.3])
 def test_bits_equal_under_every_thread_count(case, threads, thresh):
     comb, cols, want = case
-    saved = torch.get_num_threads()
-    try:
-        torch.set_num_threads(threads)
-        got = _plain(comb, cols, thresh)
-    finally:
-        torch.set_num_threads(saved)
-    _assert_bits(got, want[thresh])
+    _assert_bits(_at_threads(threads, _plain, comb, cols, thresh), want[thresh])
 
 
 @pytest.mark.parametrize("batch", [1, 7, 100, FIRST_CUT, 511])
@@ -105,29 +124,24 @@ def test_lanes_do_not_depend_on_how_torch_takes_exp_and_log(case, monkeypatch):
         _assert_bits(_plain(comb, cols, thresh), want[thresh])
 
 
-@pytest.fixture(scope="module")
-def join_case():
-    comb, lens, t_rid, t_pos, left, count, nk = overlapping_rows()
-    args = (comb, lens, t_rid, t_pos, left, count, 0, nk, 8, 30, 0.97)
-    want = [c.numpy().copy() for c in join_verify.join_verify_plain(*args)]
-    assert np.any(want[0] > 0) and want[1][0] > 0
-    return args, want
-
-
 def _join(args):
     return [c.numpy().copy() for c in join_verify.join_verify_plain(*args)]
+
+
+@pytest.fixture(scope="module")
+def join_case(start_threads):
+    """The overlapping rows and their bits at the process's thread count."""
+    comb, lens, t_rid, t_pos, left, count, nk = overlapping_rows()
+    args = (comb, lens, t_rid, t_pos, left, count, 0, nk, 8, 30, 0.97)
+    want = _at_threads(start_threads, _join, args)
+    assert np.any(want[0] > 0) and want[1][0] > 0
+    return args, want
 
 
 @pytest.mark.parametrize("threads", [1, 2, 3, 7])
 def test_join_bits_equal_under_every_thread_count(join_case, threads):
     args, want = join_case
-    saved = torch.get_num_threads()
-    try:
-        torch.set_num_threads(threads)
-        got = _join(args)
-    finally:
-        torch.set_num_threads(saved)
-    _assert_bits(got, want)
+    _assert_bits(_at_threads(threads, _join, args), want)
 
 
 @pytest.mark.parametrize("kmers_a_step", [37, 333, 4096])

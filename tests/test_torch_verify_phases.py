@@ -1,16 +1,20 @@
 """The phases haploconduct_torch's verification opens on its PhaseTimer:
-verify.* inside ops/verify.py:verify_overlaps and score.* inside
-ops/score.py:score_tasks_torch, on the timer whose phase is open on the
-thread; results bit-identical with and without them."""
+verify.* inside ops/verify.py:verify_overlaps and score.* inside the
+scoring call (parallel/mesh.py:sharded_score_tasks, which
+ops/score.py:score_tasks_torch calls with a mesh of one entry), on the
+timer whose phase is open on the thread, on one device and over a mesh of
+two; results bit-identical with and without them."""
 
 import threading
 
 import numpy as np
 import pytest
+import torch
 
 from haploconduct_torch.assemble import iteration
 from haploconduct_torch.assemble.stages import StageParams, run_stage
-from haploconduct_torch.ops.verify import verify_overlaps
+from haploconduct_torch.ops.verify import BACKEND_COUNTS, verify_overlaps
+from haploconduct_torch.parallel import mesh
 from haploconduct_torch.utils.config import Settings
 from haploconduct_torch.utils.log import PhaseTimer, nested_phase
 
@@ -40,7 +44,18 @@ def paired_case():
     return port_store(store), random_overlaps(rng, store, 150)
 
 
-CASES = {"single": single_case, "paired": paired_case}
+# a case's inputs and the entries of the mesh its verification scores over
+CASES = {"single": (single_case, 1), "paired": (paired_case, 1),
+         "paired-mesh": (paired_case, 2)}
+
+
+def load_case(case, monkeypatch):
+    """The case's store and overlaps; default_mesh() is the case's mesh of
+    CPU entries where it has more than one."""
+    build, entries = CASES[case]
+    if entries > 1:
+        monkeypatch.setattr(mesh, "default_mesh", lambda: [torch.device("cpu")] * entries)
+    return build()
 
 
 def result_bytes(res):
@@ -49,15 +64,19 @@ def result_bytes(res):
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_verify_records_every_phase_and_parents_hold_their_children(case):
-    store, ov = CASES[case]()
+def test_verify_records_every_phase_and_parents_hold_their_children(case, monkeypatch):
+    store, ov = load_case(case, monkeypatch)
+    route = "mesh" if CASES[case][1] > 1 else "torch"
+    before = dict(BACKEND_COUNTS)
     timer = PhaseTimer()
     with timer("verify"):
         res = verify_overlaps(store, store.pack(), ov, Settings(**SETTINGS))
     assert res.n_tasks > 0
+    assert BACKEND_COUNTS[route] - before[route] == res.n_tasks
     t = timer.times
     for name in VERIFY_PHASES + SCORE_PHASES:
         assert t.get(name, 0.0) > 0.0, (name, t)
+    assert "mesh.gather" not in t  # a plain device list gathers nothing
     assert t["verify"] >= sum(t[p] for p in VERIFY_PHASES)
     assert t["verify.score"] >= sum(t[p] for p in SCORE_PHASES)
     assert PhaseTimer.current() is None
@@ -65,11 +84,11 @@ def test_verify_records_every_phase_and_parents_hold_their_children(case):
 
 @pytest.mark.parametrize("mode", ["none", "closed", "open", "annotate"])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_verify_result_is_bit_identical_with_and_without_phases(case, mode):
+def test_verify_result_is_bit_identical_with_and_without_phases(case, mode, monkeypatch):
     """No timer, a timer whose phase closed before the call (it times
     nothing), a timer whose phase is open on the thread (run_iteration's
     way), and one that also annotates profiler ranges."""
-    store, ov = CASES[case]()
+    store, ov = load_case(case, monkeypatch)
     packed, s = store.pack(), Settings(**SETTINGS)
     want = result_bytes(verify_overlaps(store, packed, ov, s))
     timer = PhaseTimer(annotate=mode == "annotate")

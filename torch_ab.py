@@ -52,14 +52,13 @@ SAVAGE a -> b -> c on chip_smoke.py's envelope patch, torch backend, with
 the cache of the packed read matrix on and off (ops/device_cache.py;
 HC_DEVICE_CACHE=0), in turns (on, off, then off, on, ...), each run in a
 fresh process of this checkout. For each --mesh entry: "one" pins the
-mesh to card 0, so verify calls score_tasks_torch; "all" leaves every
-visible card in it, so with several cards verify goes through
-parallel/mesh.py:sharded_score_tasks. One JSON line a run: the mesh, the
-cache, the card, the wall seconds of run_savage, the verify-phase seconds,
-the seconds inside the scoring calls (whichever route) and of the first
-one (stage a's iteration 1), the number of calls, TRANSFER_STATS, the
-kernel's launches, the contig counts and a digest. All runs must give the
-same contigs.
+mesh to card 0; "all" leaves every visible card in it, over which verify
+shards each scoring call. One JSON line a run: the mesh, the cache, the
+card, the wall seconds of run_savage, the verify-phase seconds, the
+seconds inside the scoring calls (ops/verify.py:score_tasks_torch, over
+either mesh) and of the first one (stage a's iteration 1), the number of
+calls, TRANSFER_STATS, the kernel's launches, the contig counts and a
+digest. All runs must give the same contigs.
 """
 
 from __future__ import annotations
@@ -404,7 +403,6 @@ def timed(fn):
 
 
 verify.score_tasks_torch = timed(verify.score_tasks_torch)
-mesh.sharded_score_tasks = timed(mesh.sharded_score_tasks)
 kernels.build_all()
 kernels.load()
 devices = mesh.default_mesh() if which == "all" else [torch.device("cuda", 0)]
