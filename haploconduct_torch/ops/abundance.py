@@ -225,6 +225,24 @@ def _em_numpy(membership: np.ndarray, counts: np.ndarray,
     return alpha
 
 
+def merge_classes(parts):
+    """One classify_all result from the results of contiguous read slices,
+    given in slice order: counts summed, a class's first members array
+    kept, classes in order of first appearance, n_aligned summed. classify_all
+    inserts classes in read order, so the merge equals one pass over the
+    slices' reads, dict order included."""
+    class_counts: Dict[bytes, int] = {}
+    class_members: Dict[bytes, np.ndarray] = {}
+    n_aligned = 0
+    for counts, members, aligned in parts:
+        for key, count in counts.items():
+            class_counts[key] = class_counts.get(key, 0) + count
+            if key not in class_members:
+                class_members[key] = members[key]
+        n_aligned += aligned
+    return class_counts, class_members, n_aligned
+
+
 def estimate_abundance(
     names: Sequence[str],
     contig_seqs: Sequence[np.ndarray],
@@ -238,20 +256,29 @@ def estimate_abundance(
     per-contig counts and TPM; backend torch runs the EM on the scoring
     device, native and numpy the reference's f64 host EM."""
     index = PseudoIndex(names, contig_seqs, k=k)
+    return abundance_from_classes(index, index.classify_all(read_seqs),
+                                  len(read_seqs), fragment_len, em_iters, backend)
+
+
+def abundance_from_classes(index: PseudoIndex, classes, n_reads: int,
+                           fragment_len: float = 200.0, em_iters: int = 500,
+                           backend: str = "auto") -> AbundanceResult:
+    """estimate_abundance's EM and TPM from the equivalence classes
+    (classify_all's result) of `n_reads` reads against `index`."""
+    class_counts, class_members, n_aligned = classes
     T = index.n_targets()
-    class_counts, class_members, n_aligned = index.classify_all(read_seqs)
 
     eff_len = np.maximum(index.lengths.astype(np.float64) - fragment_len + 1.0, 1.0)
     if not class_counts or T == 0:
         z = np.zeros(T)
         return AbundanceResult(index.names, index.lengths, eff_len, z, z,
-                               0, len(read_seqs))
+                               0, n_reads)
 
-    classes = list(class_counts.keys())
-    membership = np.zeros((len(classes), T), dtype=np.float32)
-    for c, key in enumerate(classes):
+    keys = list(class_counts.keys())
+    membership = np.zeros((len(keys), T), dtype=np.float32)
+    for c, key in enumerate(keys):
         membership[c, class_members[key]] = 1.0
-    counts = np.array([class_counts[c] for c in classes], dtype=np.float64)
+    counts = np.array([class_counts[c] for c in keys], dtype=np.float64)
 
     if backend == "auto":
         from .autoback import resolve_backend
@@ -265,7 +292,7 @@ def estimate_abundance(
     rate = np.where(eff_len > 0, alpha / eff_len, 0.0)
     tpm = rate / max(rate.sum(), 1e-300) * 1e6
     return AbundanceResult(index.names, index.lengths, eff_len, alpha, tpm,
-                           n_aligned, len(read_seqs))
+                           n_aligned, n_reads)
 
 
 def store_unit_seqs(store) -> List[np.ndarray]:

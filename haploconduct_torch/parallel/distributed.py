@@ -10,7 +10,9 @@ back to every rank with all_gather_object, so the joint stages run
 replicated, their verify calls over the mesh that spans the ranks
 (parallel/mesh.py; the work items themselves run inside
 mesh.rank_local()). A (ReadStore, SubreadDict) pair travels as JSON, its
-subreads in the reference's subreads.txt text format.
+subreads in the reference's subreads.txt text format. SAVAGE's abundance
+filters deal the sample's reads to the ranks and gather each rank's
+equivalence classes (allgather_classes) as flat int32 arrays.
 
 The group's collectives wait for the slowest rank: the gather after
 SAVAGE stage a waits while that rank assembles its last patch, so the
@@ -33,6 +35,8 @@ import os
 import threading
 import time
 from typing import List, Sequence
+
+import numpy as np
 
 from ..core.reads import ReadStore
 from ..io.subreads import subreads_from_text, subreads_to_text
@@ -121,6 +125,35 @@ def allgather_bytes(payload: bytes) -> List[bytes]:
     _count(calls=1, bytes=sum(len(b) for b in gathered),
            wait_s=time.perf_counter() - t0)
     return gathered
+
+
+def allgather_classes(class_counts: dict, class_members: dict,
+                      n_aligned: int) -> list:
+    """Every process's classify_all result (ops/abundance.py), in process
+    order, each as (class_counts, class_members, n_aligned) with its classes
+    in their order. One flat int32 blob a process: the class count and
+    n_aligned, the counts, the members' offsets, the members."""
+    keys = list(class_counts)
+    members = [class_members[key] for key in keys]
+    head = np.array([len(keys), n_aligned] + [class_counts[key] for key in keys]
+                    + [0] + [len(m) for m in members], np.int64)
+    head[2 + len(keys):] = np.cumsum(head[2 + len(keys):])
+    blob = np.concatenate([head] + members).astype(np.int32).tobytes()
+    out = []
+    for data in allgather_bytes(blob):
+        flat = np.frombuffer(data, np.int32)
+        n = int(flat[0])
+        counts = flat[2:2 + n]
+        offsets = flat[2 + n:3 + 2 * n]
+        pool = flat[3 + 2 * n:]
+        got_counts, got_members = {}, {}
+        for j in range(n):
+            mem = pool[offsets[j]:offsets[j + 1]]
+            key = mem.tobytes()
+            got_counts[key] = int(counts[j])
+            got_members[key] = mem
+        out.append((got_counts, got_members, int(flat[1])))
+    return out
 
 
 def encode_store_subreads(store, subreads) -> dict:

@@ -422,7 +422,8 @@ def run_savage(
         result.timings["stage_b_s"] = round(time.time() - t0, 2)
         if cfg.filtering:
             t0 = time.time()
-            res_b = _freq_filter(res_b, store, avg_len, cfg.backend)
+            res_b = _freq_filter(res_b, store, avg_len, cfg.backend,
+                                  result.timings)
             result.timings["stage_b_filter_s"] = round(time.time() - t0, 2)
         ckpt_save("stage_b", res_b.store, res_b.subreads)
     result.stage_b = res_b
@@ -461,7 +462,8 @@ def run_savage(
         result.timings["stage_c_s"] = round(time.time() - t0, 2)
         if cfg.filtering:
             t0 = time.time()
-            res_c = _freq_filter(res_c, store, avg_len, cfg.backend)
+            res_c = _freq_filter(res_c, store, avg_len, cfg.backend,
+                                  result.timings)
             result.timings["stage_c_filter_s"] = round(time.time() - t0, 2)
         ckpt_save("stage_c", res_c.store, res_c.subreads)
     result.stage_c = res_c
@@ -491,23 +493,26 @@ def run_savage(
 
 
 def _freq_filter(res: StageResult, read_store: ReadStore, fragment_len: float,
-                 backend: str) -> StageResult:
+                 backend: str, timings: Optional[Dict[str, float]] = None) -> StageResult:
     """Abundance-based contig filtering (savage.py freq_filtering:719-777,
     min_TPM=0): pseudo-align the original input reads against the stage's
     contig panel and drop contigs whose estimated TPM is not > 0. No-op
-    when every contig has positive abundance."""
+    when every contig has positive abundance. The reads' classification
+    is dealt over the processes (_classify_dealt), which add their counts
+    to `timings`."""
     from dataclasses import replace
 
-    from ..ops.abundance import estimate_abundance, store_unit_seqs
+    from ..ops.abundance import PseudoIndex, abundance_from_classes
 
     n = len(res.store)
     if n == 0:
         return res
     ids = [int(res.store.ids[i]) for i in range(n)]
     seqs = [res.store.unit_codes(res.store.unit1[i]) for i in range(n)]
-    ab = estimate_abundance([str(i) for i in ids], seqs,
-                            store_unit_seqs(read_store),
-                            fragment_len=fragment_len, backend=backend)
+    index = PseudoIndex([str(i) for i in ids], seqs)
+    classes = _classify_dealt(index, read_store, {} if timings is None else timings)
+    ab = abundance_from_classes(index, classes, read_store.n_units,
+                                fragment_len=fragment_len, backend=backend)
     keep = ab.tpm > 0.0
     if keep.all():
         return res
@@ -529,6 +534,34 @@ def _freq_filter(res: StageResult, read_store: ReadStore, fragment_len: float,
             new_id += 1
     filtered.readcount_single = len(filtered.ids)
     return replace(res, store=filtered, subreads=sub)
+
+
+def _classify_dealt(index, read_store: ReadStore, timings: Dict[str, float]):
+    """The equivalence classes (PseudoIndex.classify_all) of every sequence
+    unit of `read_store`, in ops/abundance.py:store_unit_seqs's order. Stages
+    b and c run replicated with the whole read set on every process, so of
+    P processes rank i classifies units [n*i // P, n*(i+1) // P) and the
+    ranks merge their classes in rank order: the classes, counts, members
+    and order of one pass. One process makes that one pass. Adds to
+    `timings` the units classified here (filter_reads_classified), the
+    sample's units (filter_reads) and the seconds inside the gather of the
+    classes (filter_gather_wait_s)."""
+    from ..ops.abundance import merge_classes
+    from ..parallel.distributed import (
+        allgather_classes, process_count, process_index)
+
+    n, ranks, rank = read_store.n_units, process_count(), process_index()
+    lo, hi = n * rank // ranks, n * (rank + 1) // ranks
+    classes = index.classify_all([read_store.unit_codes(u) for u in range(lo, hi)])
+    timings["filter_reads"] = timings.get("filter_reads", 0) + n
+    timings["filter_reads_classified"] = timings.get("filter_reads_classified", 0) + hi - lo
+    if ranks > 1:
+        t0 = time.perf_counter()
+        parts = allgather_classes(*classes)
+        timings["filter_gather_wait_s"] = (timings.get("filter_gather_wait_s", 0.0)
+                                           + time.perf_counter() - t0)
+        classes = merge_classes(parts)
+    return classes
 
 
 def _original_readcount(subreads: SubreadDict) -> int:

@@ -177,14 +177,18 @@ def test_distributed_gather_stats_count_calls_bytes_and_seconds(ranks_run):
 
 def test_run_savage_splits_its_stage_a_gather_over_ranks(ranks_run):
     """Over two ranks run_savage records the gather's wait and codec
-    seconds beside stage_a_gather_s, one object gather a run, and stage b's
+    seconds beside stage_a_gather_s, three object gathers a run (stage a's
+    patches, then the classes of each of the two abundance filters, each
+    rank having classified half of the 300 reads), and stage b's
     verification opens mesh.gather inside run_iteration's verify."""
     for report, _ in ranks_run:
         timings = report["savage_timings"]
         assert all(k in timings for k in NEW_TIMINGS + ("stage_a_gather_s",)), timings
-        assert all(timings[k] >= 0 for k in NEW_TIMINGS)
+        assert all(timings[k] >= 0 for k in NEW_TIMINGS + ("filter_gather_wait_s",))
+        assert timings["filter_reads"] == 2 * 300
+        assert timings["filter_reads_classified"] == 2 * 150
         g0, g1 = report["savage_stats"]
-        assert g1["calls"] - g0["calls"] == 1 and g1["bytes"] > g0["bytes"]
+        assert g1["calls"] - g0["calls"] == 3 and g1["bytes"] > g0["bytes"]
         assert "mesh.gather" in report["savage_phases"]
 
 
@@ -196,7 +200,9 @@ def test_one_process_runs_none_of_it():
     res = run_savage(_small_store(), SavageConfig(split_num=2, backend="torch",
                                                   min_clique_size=4))
     assert "stage_a_gather_s" in res.timings
-    assert not any(k in res.timings for k in NEW_TIMINGS)
+    assert not any(k in res.timings for k in NEW_TIMINGS + ("filter_gather_wait_s",))
+    # both filters classify every read themselves
+    assert res.timings["filter_reads_classified"] == res.timings["filter_reads"] == 2 * 300
     assert distributed.allgather_bytes(b"abc") == [b"abc"]
     assert distributed.allgather_indexed([1], [0], 1, str, int) == [1]
     timer = PhaseTimer()
